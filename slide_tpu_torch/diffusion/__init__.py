@@ -1,0 +1,13 @@
+"""DDPM samplers of the generation path (counterpart: `slide_tpu/diffusion/`)."""
+
+from slide_tpu_torch.diffusion.eps import (DiffusionSchedule,
+                                           calc_diffusion_hyperparams,
+                                           diffusion_sampling)
+from slide_tpu_torch.diffusion.latent import latent_denoise_and_reconstruct
+from slide_tpu_torch.diffusion.x0 import (X0Schedule, denoising_step,
+                                          get_beta_schedule, predict_xstart,
+                                          x0_denoise)
+
+__all__ = ["DiffusionSchedule", "calc_diffusion_hyperparams", "diffusion_sampling",
+           "latent_denoise_and_reconstruct", "X0Schedule", "denoising_step",
+           "get_beta_schedule", "predict_xstart", "x0_denoise"]

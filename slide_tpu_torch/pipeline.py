@@ -1,0 +1,161 @@
+"""Point-cloud generation: position DDPM -> feature DDPM -> autoencoder decode
+(counterpart: `benchmarks/e2e_pipeline.py::build_stages` / `device_chain`,
+first three stages, and the CLI's `latent-generate`).
+
+Both DDPM chains run the `ConditionalPointNet2` module (the JAX package's
+configuration with `SLIDE_TPU_FUSED=0`); the decode's FPS trims and SA levels
+run the CUDA kernel of `ops/fps.py`.  Everything is fp32 with TF32 off.
+
+    stages = build_stages(batch=16)          # the card, committed checkpoints
+    out = generate(stages, seed=0)           # out["cloud"]: (16, 2048, 6)
+
+Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
+card they raise.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import os
+import time
+from pathlib import Path
+from typing import Any, Mapping, Optional
+
+import torch
+
+from slide_tpu_torch.config import restore_lists
+from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
+                                     latent_ddpm_config)
+from slide_tpu_torch.diffusion import (DiffusionSchedule, X0Schedule,
+                                       calc_diffusion_hyperparams, diffusion_sampling,
+                                       x0_denoise)
+from slide_tpu_torch.models import (ConditionalPointNet2, PointAutoencoder,
+                                    build_autoencoder, decode_params)
+from slide_tpu_torch.weights import load_flax_params, load_inference_params
+
+_CKPT_DIR = Path(__file__).resolve().parent.parent / "benchmarks" / "results" / "ckpts"
+DEFAULT_CKPTS = {"kp": _CKPT_DIR / "kp" / "pointnet_ckpt_19999.pkl",
+                 "lat": _CKPT_DIR / "lat" / "pointnet_ckpt_24999.pkl",
+                 "ae": _CKPT_DIR / "ae" / "pointnet_ckpt_29999.pkl"}
+
+
+def resolve_device(device=None) -> torch.device:
+    """`cuda` unless asked otherwise; raises when the card is missing."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return device
+
+
+def default_configs() -> dict:
+    """The shipped airplane presets of the three stages."""
+    return {"kp": keypoint_ddpm_config("airplane"),
+            "lat": latent_ddpm_config("airplane"),
+            "ae": autoencoder_config("airplane")}
+
+
+@dataclasses.dataclass
+class Stages:
+    """The three stages' networks and schedules on one device."""
+
+    batch: int
+    device: torch.device
+    label: torch.Tensor
+    kp_net: ConditionalPointNet2
+    lat_net: ConditionalPointNet2
+    ae: PointAutoencoder
+    kp_sched: DiffusionSchedule
+    lat_sched: X0Schedule
+    num_keypoints: int
+    latent_dim: int
+
+    def sample_kp(self, noise_fn) -> torch.Tensor:
+        """Position DDPM: (B, K, 3) keypoints."""
+        return diffusion_sampling(
+            lambda x, ts: self.kp_net(x, ts=ts, label=self.label),
+            (self.batch, self.num_keypoints, 3), self.kp_sched, noise_fn)
+
+    def sample_lat(self, noise_fn, keypoint: torch.Tensor) -> torch.Tensor:
+        """Feature DDPM with the keypoints pinned: (B, K, 3 + latent_dim)."""
+        return x0_denoise(
+            lambda x, ts: self.lat_net(x, ts=ts, label=self.label),
+            (self.batch, self.num_keypoints, 3 + self.latent_dim), self.lat_sched,
+            noise_fn, keypoint=keypoint, keypoint_dim=3)
+
+    @torch.no_grad()
+    def decode(self, keypoint, feature, start_fn=None) -> torch.Tensor:
+        """Autoencoder decode: (B, 2048, 6) points + normals."""
+        return self.ae.decode(keypoint, feature, label=self.label, start_fn=start_fn)
+
+
+def _params(src, ema_idx: int) -> Mapping[str, Any]:
+    if isinstance(src, (str, os.PathLike)):
+        return load_inference_params(str(src), ema_idx)
+    return src
+
+
+def build_stages(batch: int, t_steps: int = 1000, ckpts: Optional[Mapping] = None,
+                 device=None, configs: Optional[Mapping] = None,
+                 ema_idx: int = -1) -> Stages:
+    """Build the three stages.  `ckpts` maps kp / lat / ae to a checkpoint path
+    or a flax parameter tree (default: the committed checkpoints); `configs`
+    maps them to full experiment configs (default: the airplane presets)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device(device)
+    configs = restore_lists(copy.deepcopy(dict(configs or default_configs())))
+    ckpts = {**DEFAULT_CKPTS, **(ckpts or {})}
+
+    kp_cfg, lat_cfg, ae_cfg = configs["kp"], configs["lat"], configs["ae"]
+    dc = kp_cfg["diffusion_config"]
+    kp_sched = calc_diffusion_hyperparams(t_steps, dc["beta_0"], dc["beta_T"], dev)
+    sdc = dict(lat_cfg["standard_diffusion_config"], num_diffusion_timesteps=t_steps)
+    lat_sched = X0Schedule.from_config(sdc, dev)
+
+    kp_net = ConditionalPointNet2(kp_cfg["pointnet_config"])
+    load_flax_params(kp_net, _params(ckpts["kp"], ema_idx))
+    lat_net = ConditionalPointNet2(lat_cfg["pointnet_config"])
+    load_flax_params(lat_net, _params(ckpts["lat"], ema_idx))
+    ae = build_autoencoder(ae_cfg["pointnet_config"])
+    load_flax_params(ae, decode_params(_params(ckpts["ae"], -1)))
+
+    return Stages(
+        batch=batch, device=dev,
+        label=torch.zeros((batch,), dtype=torch.int64, device=dev),
+        kp_net=kp_net.to(dev).eval(), lat_net=lat_net.to(dev).eval(),
+        ae=ae.to(dev).eval(), kp_sched=kp_sched, lat_sched=lat_sched,
+        num_keypoints=lat_cfg["shapenet_psr_dataset_config"]["num_keypoints"],
+        latent_dim=lat_cfg["pointnet_config"]["in_fea_dim"])
+
+
+@torch.no_grad()
+def generate(stages: Stages, seed: int = 0) -> dict:
+    """One pass of the three stages with noise and FPS starts drawn from a
+    generator seeded with `seed`.  Returns the decoded cloud (B, N, 6), the
+    keypoints (B, K, 3), their features (B, K, latent_dim) and the seconds
+    of each stage."""
+    dev = stages.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def noise_fn(shape):
+        return torch.randn(tuple(shape), generator=gen, device=dev)
+
+    def start_fn(b, n):
+        return torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+
+    t0 = sync()
+    kp = stages.sample_kp(noise_fn)
+    t1 = sync()
+    latent = stages.sample_lat(noise_fn, kp)
+    t2 = sync()
+    cloud = stages.decode(latent[..., :3], latent[..., 3:], start_fn)
+    t3 = sync()
+    return {"cloud": cloud, "keypoints": latent[..., :3], "features": latent[..., 3:],
+            "seconds": {"position_ddpm": t1 - t0, "feature_ddpm": t2 - t1,
+                        "ae_decode": t3 - t2}}

@@ -1,0 +1,33 @@
+"""The port stands alone: no file of `slide_tpu_torch/`, nor `chip_smoke.py`,
+imports JAX, flax, optax or anything of the JAX package `slide_tpu`."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+FILES = sorted((REPO / "slide_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "slide_tpu")
+
+
+def _imported(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+              and node.func.id == "__import__" and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_the_port_has_files():
+    assert len(FILES) > 15
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_import(path):
+    bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"

@@ -1,0 +1,192 @@
+"""The port's networks against the flax ones on the CPU, fp32: the
+conditional PointNet++ denoiser at the kp and latent specs (narrow widths),
+the autoencoder's decode with a small config and the JAX run's own FPS
+starts, and one forward of the real kp and latent nets loaded from the
+committed checkpoints, which holds the weight bridge at full width."""
+
+import copy
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slide_tpu.cli.main import load_inference_params as j_load
+from slide_tpu.configs import (autoencoder_config, keypoint_ddpm_config,
+                               latent_ddpm_config)
+from slide_tpu.models import ConditionalPointNet2 as JNet
+from slide_tpu.models.upsample_decoder import point_upsample as j_point_upsample
+from slide_tpu.train import build_autoencoder as j_build_ae
+from slide_tpu_torch import models as tm
+from slide_tpu_torch.weights import (flax_to_torch_state, load_flax_params,
+                                     load_inference_params)
+from torch_port_helpers import (DECODE_ATOL, TRIM_CALLS, assert_close, perturb,
+                                record_jax_fps, replay_fps_in_port, run_pair,
+                                small_ae_config, to_np, trim_starts)
+
+CKPTS = Path(__file__).resolve().parent.parent / "benchmarks" / "results" / "ckpts"
+KP_CKPT = CKPTS / "kp" / "pointnet_ckpt_19999.pkl"
+LAT_CKPT = CKPTS / "lat" / "pointnet_ckpt_24999.pkl"
+AE_CKPT = CKPTS / "ae" / "pointnet_ckpt_29999.pkl"
+# fp32 through the whole network (some 20 layers, GroupNorms over 16 points):
+# sums taken in another order than XLA's grow to a few 1e-5
+ATOL = 5e-5
+
+
+def _narrow(pc, in_fea_dim, out_dim):
+    pc = copy.deepcopy(pc)
+    pc.update(in_fea_dim=in_fea_dim, out_dim=out_dim, t_dim=32, class_condition_dim=24)
+    pc["architecture"].update(feature_dim=[16, 32, 48], decoder_feature_dim=[16, 32, 48],
+                              mlp_depth=2, decoder_mlp_depth=2)
+    return pc
+
+
+def _net_inputs(seed, b, n, width, t_max):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, n, width)).astype(np.float32)
+    ts = rng.integers(0, t_max, b).astype(np.int32)
+    label = rng.integers(0, 13, b).astype(np.int32)
+    return x, ts, label
+
+
+@pytest.mark.parametrize("spec", ["kp", "latent"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_denoiser_narrow(spec, seed):
+    if spec == "kp":
+        pc = _narrow(keypoint_ddpm_config()["pointnet_config"], 0, 3)
+    else:
+        pc = _narrow(latent_ddpm_config()["pointnet_config"], 8, 11)
+    x, ts, label = _net_inputs(seed, 2, 16, 3 + pc["in_fea_dim"], 50)
+    jout, tout, _ = run_pair(JNet(pc), tm.ConditionalPointNet2(pc), [x],
+                             {"ts": ts, "label": label}, seed=seed)
+    assert_close(jout, tout, ATOL)
+
+
+def test_denoiser_without_head_as_decoder_backbone():
+    pc = copy.deepcopy(autoencoder_config()["pointnet_config"]["decoder_config_list"][1])
+    pc["architecture"].update(npoint=[24, 12, 8], nsample=[8, 8, 4], K=4,
+                              feature_dim=[16, 16, 32, 32],
+                              decoder_feature_dim=[32, 32, 32, 32])
+    x, _, label = _net_inputs(3, 2, 48, 6, 1)
+    jout, tout, _ = run_pair(JNet(pc), tm.ConditionalPointNet2(pc), [x],
+                             {"label": label}, seed=3)
+    assert tout.shape == (2, 48, 32)
+    assert_close(jout, tout, ATOL)
+
+
+def test_denoiser_rejects_unported_options():
+    pc = copy.deepcopy(keypoint_ddpm_config()["pointnet_config"])
+    pc["include_local_feature"] = True
+    with pytest.raises(NotImplementedError):
+        tm.ConditionalPointNet2(pc)
+
+
+@pytest.mark.parametrize("first_refine,center", [(False, False), (True, False),
+                                                 (True, True)])
+def test_point_upsample(first_refine, center):
+    rng = np.random.default_rng(4)
+    coarse = rng.standard_normal((2, 5, 6)).astype(np.float32)
+    groups = 4 + int(first_refine)
+    disp = rng.standard_normal((2, 5, 6 * groups)).astype(np.float32)
+    kw = dict(include_displacement_center_to_final_output=center,
+              output_scale_factor_value=0.03, first_refine_coarse_points=first_refine)
+    got = tm.point_upsample(torch.as_tensor(coarse), torch.as_tensor(disp), 4, **kw)
+    want = j_point_upsample(jnp.asarray(coarse), jnp.asarray(disp), 4, **kw)
+    np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
+
+
+@pytest.mark.parametrize("random_starts", [True, False])
+def test_autoencoder_decode_small(monkeypatch, random_starts):
+    """Decode against the JAX decode, with the FPS record / replay of
+    `torch_port_helpers` (every FPS call held to exact equality on the JAX
+    cloud, and the JAX indices taken, so near-ties cannot fork the runs)."""
+    cfg = small_ae_config()
+    jae = j_build_ae(cfg)
+    rng = np.random.default_rng(5)
+    kp = rng.standard_normal((2, 16, 3)).astype(np.float32) * 0.5
+    feat = rng.standard_normal((2, 16, 16)).astype(np.float32)
+    label = np.array([0, 4], np.int32)
+    args = (jnp.asarray(kp), jnp.asarray(feat))
+    variables = jax.jit(lambda key: jae.init({"params": key}, *args,
+                                             label=jnp.asarray(label),
+                                             method=jae.decode))(jax.random.key(0))
+    params = perturb(variables["params"], 0, scale=0.05)
+
+    calls = record_jax_fps(monkeypatch)
+    rngs = {"fps": jax.random.key(7)} if random_starts else {}
+    want = jax.jit(lambda p: jae.apply({"params": p}, *args, label=jnp.asarray(label),
+                                       method=jae.decode, rngs=rngs))(params)
+    jax.effects_barrier()
+    assert len(calls) == 9
+    assert any(calls[i][1].any() for i in TRIM_CALLS) == random_starts
+
+    replay = replay_fps_in_port(monkeypatch, calls, DECODE_ATOL)
+    tae = tm.build_autoencoder(cfg)
+    load_flax_params(tae, params)   # decode's params are exactly the port's
+    with torch.no_grad():
+        got = tae.decode(torch.as_tensor(kp), torch.as_tensor(feat),
+                         label=torch.as_tensor(label), start_fn=trim_starts(calls))
+    assert next(replay, None) is None
+    assert got.shape == (2, 200, 6)
+    assert_close(want, got, DECODE_ATOL)
+
+
+def test_decode_params_picks_the_decode_subtree():
+    tree = {"encoder": {"w": {"kernel": np.zeros((2, 2))}},
+            "keypoint_encoder": {"fc_layer": {"kernel": np.zeros((2, 3)),
+                                              "bias": np.zeros(3)},
+                                 "feature_mapper": {"x": {"bias": np.zeros(1)}}},
+            "decoder": {"decoders_0": {"fc_layer": {"bias": np.zeros(4)}}}}
+    sub = tm.decode_params(tree)
+    assert set(sub) == {"keypoint_encoder", "decoder"}
+    assert set(sub["keypoint_encoder"]) == {"fc_layer"}
+
+
+def test_weight_bridge_is_strict():
+    net = torch.nn.Sequential()
+    net.add_module("fc", torch.nn.Linear(3, 2))
+    good = {"fc": {"kernel": np.ones((3, 2), np.float32), "bias": np.ones(2, np.float32)}}
+    load_flax_params(net, good)
+    np.testing.assert_array_equal(net.fc.weight.detach().numpy(), np.ones((2, 3)))
+    assert set(flax_to_torch_state(good)) == {"fc.weight", "fc.bias"}
+    with pytest.raises(ValueError, match="fc.bias"):
+        load_flax_params(net, {"fc": {"kernel": np.ones((3, 2), np.float32)}})
+    with pytest.raises(ValueError, match="extra"):
+        load_flax_params(net, {**good, "extra": {"bias": np.ones(1, np.float32)}})
+    with pytest.raises(ValueError, match="shape"):
+        load_flax_params(net, {"fc": {"kernel": np.ones((2, 2), np.float32),
+                                      "bias": np.ones(2, np.float32)}})
+
+
+@pytest.mark.parametrize("ema_idx", [-1, 1])
+def test_load_inference_params_matches_the_cli(ema_idx):
+    got = flax_to_torch_state(load_inference_params(str(KP_CKPT), ema_idx))
+    want = flax_to_torch_state(j_load(str(KP_CKPT), ema_idx))
+    assert got.keys() == want.keys()
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("name,ckpt,width", [("kp", KP_CKPT, 3), ("lat", LAT_CKPT, 51)])
+def test_real_nets_from_committed_checkpoints(name, ckpt, width):
+    pc = (keypoint_ddpm_config() if name == "kp" else latent_ddpm_config())["pointnet_config"]
+    params = load_inference_params(str(ckpt))
+    net = tm.ConditionalPointNet2(pc)
+    load_flax_params(net, params)
+    x, ts, label = _net_inputs(6, 2, 16, width, 1000)
+    want = jax.jit(lambda p: JNet(pc).apply({"params": p}, jnp.asarray(x),
+                                            ts=jnp.asarray(ts), label=jnp.asarray(label)))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    with torch.no_grad():
+        got = net(torch.as_tensor(x), ts=torch.as_tensor(ts), label=torch.as_tensor(label))
+    # late steps: the f32 timestep embedding differs by up to 2e-4
+    # (test_torch_nn.py::test_calc_t_emb_late_steps) before the network
+    assert_close(want, got, 2e-4, rtol=1e-4)
+
+
+def test_real_autoencoder_decode_loads_strictly():
+    ae = tm.build_autoencoder(autoencoder_config()["pointnet_config"])
+    load_flax_params(ae, tm.decode_params(load_inference_params(str(AE_CKPT))))
+    assert ae.decoder.decoders_0.fc_layer.weight.shape == (48, 390)

@@ -1,0 +1,152 @@
+"""Shared helpers of the tests that hold `slide_tpu_torch` against the JAX
+package: run a flax module and its port on the same numpy inputs with the
+same (perturbed) weights, copied by `weights.load_flax_params`."""
+
+import copy
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from slide_tpu_torch.weights import load_flax_params
+
+
+def perturb(params, seed: int, scale: float = 0.1):
+    """Move every weight off its init value (zero biases, unit GroupNorm
+    scales), so the comparison sees every leaf land in the right place."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + scale * rng.standard_normal(a.shape)).astype(np.float32),
+        params)
+
+
+def to_jax(x):
+    return jnp.asarray(x) if isinstance(x, np.ndarray) else x
+
+
+def to_torch(x):
+    return torch.as_tensor(x) if isinstance(x, np.ndarray) else x
+
+
+def to_np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def run_pair(flax_mod, torch_mod, args, kwargs=None, *, seed=0):
+    """Init the flax module on `args`, perturb its params, copy them into the
+    torch module, run both.  Returns (jax outputs, torch outputs, params)."""
+    kwargs = kwargs or {}
+    jargs = [to_jax(a) for a in args]
+    jkw = {k: to_jax(v) for k, v in kwargs.items()}
+    # jitted: one compile of the whole module costs less than op-by-op
+    # dispatch of a cold process
+    variables = jax.jit(lambda key: flax_mod.init(key, *jargs, **jkw))(
+        jax.random.key(seed))
+    params = perturb(variables["params"], seed)
+    jout = jax.jit(lambda p: flax_mod.apply({"params": p}, *jargs, **jkw))(params)
+    load_flax_params(torch_mod, params)
+    with torch.no_grad():
+        tout = torch_mod(*[to_torch(a) for a in args],
+                         **{k: to_torch(v) for k, v in kwargs.items()})
+    return jout, tout, params
+
+
+def assert_close(jout, tout, atol, rtol=1e-5):
+    """|torch - jax| <= atol + rtol * |jax|, elementwise.  rtol 1e-5 is some
+    80 fp32 ulps: outputs of magnitude ~1-3 come out of several layers of
+    sums taken in another order than XLA's."""
+    if isinstance(jout, (tuple, list)):
+        assert len(jout) == len(tout)
+        for j, t in zip(jout, tout):
+            assert_close(j, t, atol, rtol)
+        return
+    j, t = to_np(jout), to_np(tout)
+    assert j.shape == t.shape, (j.shape, t.shape)
+    np.testing.assert_allclose(t, j, atol=atol, rtol=rtol)
+
+
+# decode stacks two PointNet++ networks (some 40 fp32 layers) and feeds their
+# features, scaled by 0.5 (small_ae_config), into the next level's points
+DECODE_ATOL = 5e-4
+# positions of the trims among a decode's nine FPS calls
+TRIM_CALLS = (0, 4, 8)
+
+
+def small_ae_config():
+    """The airplane autoencoder at narrow widths (latent width 16) and few
+    points: 16 keypoints -> 64 -> 128 -> 200.  The displacement scales grow
+    to 0.5: at the shipped 0.03 / 0.003 / 0.001 the split points sit so close
+    that their squared distances (||x||^2 - 2<x, y> + ||y||^2 in fp32, in
+    either framework) are rounding noise, and neighbour order within a
+    cluster is decided by the order of the sums."""
+    from slide_tpu_torch.configs import autoencoder_config
+    cfg = copy.deepcopy(autoencoder_config()["pointnet_config"])
+    l1, l2, l3 = cfg["decoder_config_list"]
+    l1["architecture"]["feature_dim"] = [8, 8, 8]
+    l1["feature_mapper_setting"]["out_dim"] = 8
+    l1["upsampling_setting"].update(point_upsample_factor=8, num_output_points=64,
+                                    output_scale_factor=0.5)
+    for lvl, npoint, ups, n_out in [(l2, [32, 16, 8], 4, 128), (l3, [64, 16, 8], 2, 200)]:
+        lvl["architecture"].update(npoint=npoint, nsample=[8, 8, 4], K=4,
+                                   feature_dim=[16, 16, 32, 32],
+                                   decoder_feature_dim=[32, 32, 32, 32])
+        lvl["feature_mapper_setting"].update(out_dim=16, nsample=4)
+        lvl["upsampling_setting"].update(point_upsample_factor=ups,
+                                         num_output_points=n_out, output_scale_factor=0.5)
+    return cfg
+
+
+def record_jax_fps(monkeypatch):
+    """Record every FPS call of the JAX decode (its trims and SA levels), in
+    order, as [cloud, start (B,), indices]; works under jit."""
+    import slide_tpu.models.upsample_decoder as j_updec
+    import slide_tpu.nn.modules as j_modules
+    calls = []
+    real = j_updec.furthest_point_sample
+
+    def recording(xyz, k, start_idx=0, num_forced=0):
+        idx = real(xyz, k, start_idx=start_idx, num_forced=num_forced)
+        start = jnp.broadcast_to(jnp.asarray(start_idx, jnp.int32), (xyz.shape[0],))
+        jax.debug.callback(lambda *a: calls.append([np.array(x) for x in a]),
+                           xyz, start, idx, ordered=True)
+        return idx
+
+    monkeypatch.setattr(j_updec, "furthest_point_sample", recording)
+    monkeypatch.setattr(j_modules, "furthest_point_sample", recording)
+    return calls
+
+
+def replay_fps_in_port(monkeypatch, calls, atol):
+    """Make the port's decode replay the recorded JAX FPS calls: the cloud
+    it hands FPS must match the JAX one within atol, its start must be the
+    JAX start, the port's own FPS on the JAX cloud must give the JAX indices
+    exactly, and the JAX indices are what it gets back, so a near-tie
+    between points 1e-6 apart cannot fork the two runs.  Returns the
+    iterator, to check that every call was replayed."""
+    import slide_tpu_torch.models.upsample_decoder as t_updec
+    import slide_tpu_torch.nn.modules as t_modules
+    from slide_tpu_torch.ops import furthest_point_sample
+    replay = iter(calls)
+
+    def replaying(xyz, k, start_idx=0, num_forced=0):
+        j_xyz, j_start, j_idx = next(replay)
+        np.testing.assert_allclose(to_np(xyz), j_xyz, atol=atol, rtol=1e-5)
+        start = torch.broadcast_to(torch.as_tensor(start_idx), (xyz.shape[0],))
+        np.testing.assert_array_equal(to_np(start), j_start)
+        np.testing.assert_array_equal(
+            to_np(furthest_point_sample(torch.as_tensor(j_xyz), k,
+                                        torch.as_tensor(j_start))), j_idx)
+        return torch.as_tensor(j_idx)
+
+    monkeypatch.setattr(t_updec, "furthest_point_sample", replaying)
+    monkeypatch.setattr(t_modules, "furthest_point_sample", replaying)
+    return replay
+
+
+def trim_starts(calls):
+    """A decode `start_fn` that hands out the JAX run's trim starts."""
+    starts = iter([calls[i][1] for i in TRIM_CALLS])
+    return lambda b, n: torch.as_tensor(next(starts))
