@@ -8,16 +8,27 @@ built for CUDA.  It builds the kernels itself into `build/`.  Phases, one
 line each as soon as it ends:
 
   env      torch and CUDA versions; the card's name and power limit
-  build    one nvcc call for all kernel sources, its seconds and ptxas report
+  build    one nvcc per kernel source, all at once, then the link: seconds
+           and the ptxas report
   k3       the FPS kernel against its plain PyTorch version at every shape
            the decode gives it (batch 16, random and zero starts): indices
            must be equal; kernel ms, plain ms and the bound per shape
-  slice    position DDPM -> feature DDPM -> AE decode at full width, batch 16,
-           T=1000, committed checkpoints: seconds per stage; the cloud must be
-           (16, 2048, 6) and finite, and the FPS kernel must have been
-           launched by the decode (launch counter)
-  net      the kp and latent denoisers on the card against the CPU, same
-           weights and input, atol 1e-4 (fp32, TF32 off)
+  k1       the fused-denoiser kernel against its plain PyTorch version, kp
+           and latent nets with the committed weights, batch 16 and 5:
+           max abs error (atol 1e-4); kernel ms, plain ms, the eager module's
+           ms (the unfused forward, the yardstick) and the bound
+  slice    the main path: position DDPM -> feature DDPM -> AE decode at full
+           width, batch 16, T=1000, committed checkpoints, fused denoisers
+           (the default): a warm-up pass, then the counted pass.  Seconds per
+           stage; the cloud must be (16, 2048, 6) and finite; the counted
+           pass must launch the fused denoiser 2000 times and FPS at least 9
+  fastdpm  the same stages with FastDPM, S=50 steps per chain: 100 fused
+           launches, the decode's FPS, a finite (16, 2048, 6) cloud
+  net      the kp and latent denoisers on the card (the module and the fused
+           net) against the module on the CPU, same weights and input, atol
+           1e-4 (fp32, TF32 off)
+  unfused  the slice with fused=False (the modules), T cut to 100: a warm-up
+           and a counted pass; no fused launch, at least 9 FPS launches
 
 Then the nvidia-smi line, one JSON line of kernel figures, and the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
@@ -34,13 +45,19 @@ import numpy as np
 import torch
 
 from slide_tpu_torch import _build
+from slide_tpu_torch.models import fused_denoiser as fd
 from slide_tpu_torch.ops import fps as fps_mod
-from slide_tpu_torch.pipeline import build_stages, generate
+from slide_tpu_torch.pipeline import build_stages, generate, with_fastdpm
 
 faulthandler.dump_traceback_later(600, exit=True)
 
 BATCH = 16
 T_STEPS = 1000
+T_UNFUSED = 100        # the unfused slice, cut so that the run stays short
+FASTDPM_STEPS = 50
+K1_BATCHES = (16, 5)
+K1_ATOL = 1e-4
+NET_ATOL = 1e-4
 # (N, K) of the FPS calls of one decode, in call order: the keypoint level's
 # trim, level 2's SA stack and trim, level 3's SA stack and trim
 DECODE_FPS = [(512, 256), (256, 128), (128, 64), (64, 16), (2048, 1024),
@@ -115,22 +132,130 @@ def phase_k3(dev) -> dict:
     return per_shape, max_err
 
 
+def k1_bound_parts(lay: dict, b: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one fused forward at batch b, from the
+    packed net's layer table: inputs, output and weights once at the memory
+    rate; the weight dots, 2 * rows * c_in * c_out each, at the fp32 rate."""
+    n = lay["n"]
+    tot = {"flops": 0, "weights": 0}
+
+    def dense(d, rows):
+        tot["flops"] += 2 * b * rows * d["cin"] * d["cout"]
+        tot["weights"] += d["cin"] * d["cout"] + (d["cout"] if d["b"] >= 0 else 0)
+
+    def norm(nd):
+        tot["weights"] += 2 * (nd["c"] - nd["c"] % nd["g"])
+
+    def mlp(m, rows):
+        for i in range(m["n_layers"]):
+            dense(m["conv"][i], rows)
+            norm(m["norm"][i])
+        if m["inject_t"]:
+            dense(m["fc_t"], 1)
+        if m["inject_c"]:
+            dense(m["fc_c"], 1)
+        if m["res"] == 2:
+            dense(m["res_conv"], rows)
+
+    def att(a, k):
+        dense(a["feat_conv"], n)
+        for key in ("grouped_conv", "w_conv_1", "w_conv_2", "out_conv"):
+            dense(a[key], n * k)
+        for key in ("w_norm_1", "w_norm_2", "out_norm"):
+            norm(a[key])
+
+    for s in lay["sa"][:lay["n_sa"]]:
+        mlp(s["mlp"], n * s["k"])
+        att(s["att"], s["k"])
+    for f in lay["fp"][:lay["n_fp"]]:
+        mlp(f["mlp1"], n * f["k"])
+        att(f["att"], f["k"])
+        mlp(f["mlp2"], n)
+    dense(lay["head1"], n)
+    norm(lay["head_norm"])
+    dense(lay["head_out"], n)
+    io = b * n * lay["din"] + b * lay["t4"] + b * lay["cls"] + b * n * lay["out_dim"]
+    bytes_ = 4 * (io + tot["weights"])
+    return 1e3 * bytes_ / PEAK_BYTES, 1e3 * tot["flops"] / PEAK_FP32_FLOPS
+
+
+def phase_k1(stages, dev) -> tuple[dict, float]:
+    """K1 against its plain version; per (net, batch): kernel, plain and
+    module ms and the bound parts."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res, max_err = {}, 0.0
+    for name, net, fn, width in [("kp", stages.kp_net, stages.kp_fused, 3),
+                                 ("lat", stages.lat_net, stages.lat_fused,
+                                  3 + stages.latent_dim)]:
+        for b in K1_BATCHES:
+            pc = torch.randn((b, 16, width), generator=gen, device=dev)
+            ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
+            label = torch.randint(0, 13, (b,), generator=gen, device=dev)
+            with torch.no_grad():
+                t4, cls = net.t_embedder(ts), net.class_emb(label)
+                got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
+                want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                max_err = max(max_err, err)
+                if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"k1 {name} batch {b}: kernel and plain "
+                                         f"differ by {err}")
+                ms = cuda_ms(lambda: fd.fused_forward_cuda(fn.packed, pc, t4, cls), 50)
+                plain_ms = cuda_ms(
+                    lambda: fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls), 10)
+                module_ms = cuda_ms(lambda: net(pc, ts=ts, label=label), 10)
+            parts = k1_bound_parts(fn.packed.layout, b)
+            res[(name, b)] = (ms, plain_ms, module_ms, parts)
+            bound_ms, bound_by = bound(parts)
+            log("k1", net=name, batch=b, max_abs_err=err, atol=K1_ATOL, ms=ms,
+                plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
+                bound_by=bound_by, bytes_ms=parts[0], operations_ms=parts[1])
+    return res, max_err
+
+
+def run_slice(phase, stages, seed, want_fused):
+    """One counted pass of `generate`: launch counts from zero, shape and
+    finiteness checks, one log line."""
+    _build.launch_counts.clear()
+    out = generate(stages, seed=seed)
+    launches = dict(_build.launch_counts)
+    cloud = out["cloud"]
+    finite = bool(torch.isfinite(cloud).all())
+    log(phase, batch=stages.batch, seconds=out["seconds"], shape=list(cloud.shape),
+        finite=finite, launches=launches)
+    if tuple(cloud.shape) != (stages.batch, 2048, 6) or not finite:
+        raise AssertionError(f"{phase}: bad cloud: shape {tuple(cloud.shape)}, "
+                             f"finite {finite}")
+    if launches.get("fps", 0) < len(DECODE_FPS):
+        raise AssertionError(f"{phase}: decode launched the FPS kernel "
+                             f"{launches.get('fps', 0)} times, expected {len(DECODE_FPS)}")
+    if launches.get("fused_denoiser", 0) != want_fused:
+        raise AssertionError(f"{phase}: {launches.get('fused_denoiser', 0)} fused "
+                             f"denoiser launches, expected {want_fused}")
+    return out, launches
+
+
 def phase_net(stages, dev):
     rng = np.random.default_rng(0)
-    for name, net, width in [("kp", stages.kp_net, 3),
-                             ("lat", stages.lat_net, 3 + stages.latent_dim)]:
+    for name, net, fn, width in [("kp", stages.kp_net, stages.kp_fused, 3),
+                                 ("lat", stages.lat_net, stages.lat_fused,
+                                  3 + stages.latent_dim)]:
         x = torch.as_tensor(rng.standard_normal((BATCH, 16, width)), dtype=torch.float32)
         ts = torch.as_tensor(rng.integers(0, T_STEPS, BATCH), dtype=torch.int32)
         label = torch.zeros(BATCH, dtype=torch.int64)
         with torch.no_grad():
             got = net(x.to(dev), ts=ts.to(dev), label=label.to(dev)).cpu()
+            got_fused = fn(x.to(dev), ts.to(dev), label.to(dev)).cpu()
             cpu_net = net.to("cpu")
             want = cpu_net(x, ts=ts, label=label)
             net.to(dev)
         err = float((got - want).abs().max())
-        log("net", net=name, max_abs_err=err, atol=1e-4)
-        if not err <= 1e-4:
-            raise AssertionError(f"{name} net: card and CPU differ by {err}")
+        err_fused = float((got_fused - want).abs().max())
+        log("net", net=name, max_abs_err=err, fused_max_abs_err=err_fused, atol=NET_ATOL)
+        if not (err <= NET_ATOL and err_fused <= NET_ATOL):
+            raise AssertionError(f"{name} net: card and CPU differ by {err} (module), "
+                                 f"{err_fused} (fused)")
 
 
 def main():
@@ -152,36 +277,50 @@ def main():
 
     t0 = time.perf_counter()
     stages = build_stages(BATCH, T_STEPS)
-    log("slice_setup", seconds=time.perf_counter() - t0)
+    log("slice_setup", seconds=time.perf_counter() - t0, t_steps=T_STEPS, fused=True)
+    k1, k1_err = phase_k1(stages, dev)
+
+    # the main path: a warm-up pass, then the counted pass
     warm = generate(stages, seed=1)
     log("slice_warmup", seconds=warm["seconds"])
-    _build.launch_counts.clear()
-    out = generate(stages, seed=0)
-    launches = dict(_build.launch_counts)
-    cloud = out["cloud"]
-    finite = bool(torch.isfinite(cloud).all())
-    log("slice", batch=BATCH, t_steps=T_STEPS, seconds=out["seconds"],
-        shape=list(cloud.shape), finite=finite, launches=launches)
-    if tuple(cloud.shape) != (BATCH, 2048, 6) or not finite:
-        raise AssertionError(f"bad cloud: shape {tuple(cloud.shape)}, finite {finite}")
-    if launches.get("fps", 0) < len(DECODE_FPS):
-        raise AssertionError(f"decode launched the FPS kernel {launches.get('fps', 0)} "
-                             f"times, expected {len(DECODE_FPS)}")
+    _, launches = run_slice("slice", stages, 0, want_fused=2 * T_STEPS)
+    run_slice("fastdpm", with_fastdpm(stages, FASTDPM_STEPS), 2,
+              want_fused=2 * FASTDPM_STEPS)
 
     phase_net(stages, dev)
 
-    # one decode's worth of FPS calls, summed
+    del stages
+    unfused = build_stages(BATCH, T_UNFUSED, fused=False)
+    warm = generate(unfused, seed=1)
+    log("unfused_slice_warmup", t_steps=T_UNFUSED, seconds=warm["seconds"])
+    run_slice("unfused_slice", unfused, 0, want_fused=0)
+
+    # FPS: one decode's worth of calls, summed
     ms = sum(per_shape[s][0] for s in DECODE_FPS)
     plain_ms = sum(per_shape[s][1] for s in DECODE_FPS)
     bound_ms, bound_by = bound([sum(per_shape[s][2][i] for s in DECODE_FPS)
                                 for i in range(2)])
+    # K1: per launch of the main path, which runs the kp and latent nets
+    # 1000 times each at batch 16: the mean of the two
+    nets = [k1[(name, BATCH)] for name in ("kp", "lat")]
+    k1_bound, k1_by = bound([sum(r[3][i] for r in nets) / 2 for i in range(2)])
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "fps", "route": "cuda", "source": "slide_tpu_torch/csrc/fps.cu",
         "replaces": "slide_tpu/ops/pallas/fps.py:98",
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "fused_denoiser", "route": "cuda",
+        "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
+        "replaces": "slide_tpu/models/fused_denoiser.py:553",
+        "launches": launches.get("fused_denoiser", 0), "max_abs_err": k1_err,
+        "ms": sum(r[0] for r in nets) / 2, "plain_ms": sum(r[1] for r in nets) / 2,
+        "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+        "module_ms": sum(r[2] for r in nets) / 2,
+        "per_net": {name: {"ms": r[0], "plain_ms": r[1], "module_ms": r[2],
+                           "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1]}
+                    for name, r in zip(("kp", "lat"), nets)}}]}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

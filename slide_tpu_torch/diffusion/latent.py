@@ -2,7 +2,8 @@
 `slide_tpu/diffusion/latent.py::latent_denoise_and_reconstruct`, DDPM
 sampler).  The latent is [keypoint positions | keypoint features]; with
 keypoints given they are pinned at every step and only features are
-denoised.  The FastDPM sampler and the training loss are later slices.
+denoised.  The FastDPM samplers are `fastdpm.py`; the training loss is a
+later slice.
 """
 
 from __future__ import annotations

@@ -2,12 +2,16 @@
 (counterpart: `benchmarks/e2e_pipeline.py::build_stages` / `device_chain`,
 first three stages, and the CLI's `latent-generate`).
 
-Both DDPM chains run the `ConditionalPointNet2` module (the JAX package's
-configuration with `SLIDE_TPU_FUSED=0`); the decode's FPS trims and SA levels
-run the CUDA kernel of `ops/fps.py`.  Everything is fp32 with TF32 off.
+Both DDPM chains run the fused denoiser by default (`fused=True`, the JAX
+package's default `SLIDE_TPU_FUSED=1`): on the card every denoiser step is
+one launch of the CUDA kernel of `models/fused_denoiser.py`.  `fused=False`
+runs the `ConditionalPointNet2` module instead.  The decode's FPS trims and
+SA levels run the CUDA kernel of `ops/fps.py`.  Everything is fp32 with TF32
+off.
 
     stages = build_stages(batch=16)          # the card, committed checkpoints
     out = generate(stages, seed=0)           # out["cloud"]: (16, 2048, 6)
+    out = generate(with_fastdpm(stages, 50), seed=0)   # FastDPM, 50 + 50 steps
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; with no
 card they raise.
@@ -20,7 +24,7 @@ import dataclasses
 import os
 import time
 from pathlib import Path
-from typing import Any, Mapping, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -28,13 +32,17 @@ from slide_tpu_torch.config import restore_lists
 from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
                                      latent_ddpm_config)
 from slide_tpu_torch.diffusion import (DiffusionSchedule, X0Schedule,
-                                       calc_diffusion_hyperparams, diffusion_sampling,
-                                       x0_denoise)
+                                       calc_diffusion_hyperparams, diffusion_config_of,
+                                       diffusion_sampling, fast_sampling,
+                                       fast_x0_denoise, x0_denoise)
 from slide_tpu_torch.models import (ConditionalPointNet2, PointAutoencoder,
                                     build_autoencoder, decode_params)
+from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn
 from slide_tpu_torch.weights import load_flax_params, load_inference_params
 
 _CKPT_DIR = Path(__file__).resolve().parent.parent / "benchmarks" / "results" / "ckpts"
+# FastDPM's noise scale, as the JAX pipeline's `with_fastdpm` runs it
+FASTDPM_KAPPA = 0.5
 DEFAULT_CKPTS = {"kp": _CKPT_DIR / "kp" / "pointnet_ckpt_19999.pkl",
                  "lat": _CKPT_DIR / "lat" / "pointnet_ckpt_24999.pkl",
                  "ae": _CKPT_DIR / "ae" / "pointnet_ckpt_29999.pkl"}
@@ -57,7 +65,10 @@ def default_configs() -> dict:
 
 @dataclasses.dataclass
 class Stages:
-    """The three stages' networks and schedules on one device."""
+    """The three stages' networks and schedules on one device.  `kp_fused` /
+    `lat_fused` are the fused denoisers (`make_fused_net_fn`), None when the
+    chains run the modules; `fastdpm` > 0 swaps both chains for S-step
+    FastDPM samplers (STEP method, quadratic schedule, kappa 0.5)."""
 
     batch: int
     device: torch.device
@@ -69,19 +80,39 @@ class Stages:
     lat_sched: X0Schedule
     num_keypoints: int
     latent_dim: int
+    kp_fused: Optional[Callable] = None
+    lat_fused: Optional[Callable] = None
+    fastdpm: int = 0
+
+    def kp_eps(self, x, ts) -> torch.Tensor:
+        if self.kp_fused is not None:
+            return self.kp_fused(x, ts, self.label)
+        return self.kp_net(x, ts=ts, label=self.label)
+
+    def lat_eps(self, x, ts) -> torch.Tensor:
+        if self.lat_fused is not None:
+            return self.lat_fused(x, ts, self.label)
+        return self.lat_net(x, ts=ts, label=self.label)
 
     def sample_kp(self, noise_fn) -> torch.Tensor:
         """Position DDPM: (B, K, 3) keypoints."""
-        return diffusion_sampling(
-            lambda x, ts: self.kp_net(x, ts=ts, label=self.label),
-            (self.batch, self.num_keypoints, 3), self.kp_sched, noise_fn)
+        shape = (self.batch, self.num_keypoints, 3)
+        if self.fastdpm > 0:
+            return fast_sampling(self.kp_eps, shape, self.kp_sched,
+                                 diffusion_config_of(self.kp_sched), noise_fn,
+                                 length=self.fastdpm, sampling_method="step",
+                                 schedule="quadratic", kappa=FASTDPM_KAPPA)
+        return diffusion_sampling(self.kp_eps, shape, self.kp_sched, noise_fn)
 
     def sample_lat(self, noise_fn, keypoint: torch.Tensor) -> torch.Tensor:
         """Feature DDPM with the keypoints pinned: (B, K, 3 + latent_dim)."""
-        return x0_denoise(
-            lambda x, ts: self.lat_net(x, ts=ts, label=self.label),
-            (self.batch, self.num_keypoints, 3 + self.latent_dim), self.lat_sched,
-            noise_fn, keypoint=keypoint, keypoint_dim=3)
+        shape = (self.batch, self.num_keypoints, 3 + self.latent_dim)
+        if self.fastdpm > 0:
+            return fast_x0_denoise(self.lat_eps, shape, self.lat_sched, noise_fn,
+                                   length=self.fastdpm, schedule="quadratic",
+                                   kappa=FASTDPM_KAPPA, keypoint=keypoint, keypoint_dim=3)
+        return x0_denoise(self.lat_eps, shape, self.lat_sched, noise_fn,
+                          keypoint=keypoint, keypoint_dim=3)
 
     @torch.no_grad()
     def decode(self, keypoint, feature, start_fn=None) -> torch.Tensor:
@@ -97,10 +128,12 @@ def _params(src, ema_idx: int) -> Mapping[str, Any]:
 
 def build_stages(batch: int, t_steps: int = 1000, ckpts: Optional[Mapping] = None,
                  device=None, configs: Optional[Mapping] = None,
-                 ema_idx: int = -1) -> Stages:
+                 ema_idx: int = -1, fused: bool = True) -> Stages:
     """Build the three stages.  `ckpts` maps kp / lat / ae to a checkpoint path
     or a flax parameter tree (default: the committed checkpoints); `configs`
-    maps them to full experiment configs (default: the airplane presets)."""
+    maps them to full experiment configs (default: the airplane presets).
+    `fused` runs both chains through the fused denoiser and raises when a
+    denoiser's config is outside its scope; `fused=False` runs the modules."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
@@ -120,13 +153,31 @@ def build_stages(batch: int, t_steps: int = 1000, ckpts: Optional[Mapping] = Non
     ae = build_autoencoder(ae_cfg["pointnet_config"])
     load_flax_params(ae, decode_params(_params(ckpts["ae"], -1)))
 
+    kp_net, lat_net = kp_net.to(dev).eval(), lat_net.to(dev).eval()
+    num_keypoints = lat_cfg["shapenet_psr_dataset_config"]["num_keypoints"]
+    kp_fused = lat_fused = None
+    if fused:
+        kp_fused = make_fused_net_fn(kp_cfg["pointnet_config"], kp_net, num_keypoints)
+        lat_fused = make_fused_net_fn(lat_cfg["pointnet_config"], lat_net, num_keypoints)
+        for name, fn in (("kp", kp_fused), ("lat", lat_fused)):
+            if fn is None:
+                raise ValueError(f"fused=True: the {name} denoiser's config is outside "
+                                 f"the fused kernel's scope; pass fused=False")
+
     return Stages(
         batch=batch, device=dev,
         label=torch.zeros((batch,), dtype=torch.int64, device=dev),
-        kp_net=kp_net.to(dev).eval(), lat_net=lat_net.to(dev).eval(),
-        ae=ae.to(dev).eval(), kp_sched=kp_sched, lat_sched=lat_sched,
-        num_keypoints=lat_cfg["shapenet_psr_dataset_config"]["num_keypoints"],
-        latent_dim=lat_cfg["pointnet_config"]["in_fea_dim"])
+        kp_net=kp_net, lat_net=lat_net, ae=ae.to(dev).eval(), kp_sched=kp_sched,
+        lat_sched=lat_sched, num_keypoints=num_keypoints,
+        latent_dim=lat_cfg["pointnet_config"]["in_fea_dim"],
+        kp_fused=kp_fused, lat_fused=lat_fused)
+
+
+def with_fastdpm(stages: Stages, length: int) -> Stages:
+    """The same stages with both DDPM chains swapped for `length`-step
+    FastDPM samplers (STEP method, quadratic schedule, kappa 0.5), over the
+    same nets (counterpart: `benchmarks/e2e_pipeline.py::with_fastdpm`)."""
+    return dataclasses.replace(stages, fastdpm=length)
 
 
 @torch.no_grad()

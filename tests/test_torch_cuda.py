@@ -1,4 +1,5 @@
-"""Tests of the port's CUDA kernels on the card; they skip without one.
+"""Tests of the port's CUDA kernels (FPS, the fused denoiser) on the card; they
+skip without one.
 
 On a machine with the card, `nvcc` and no JAX, run them from the repository
 root with `python3 -m pytest --noconftest -q tests/test_torch_cuda.py` (the
@@ -55,3 +56,88 @@ def test_fps_wrapper_counts_launches_and_checks_inputs(cuda):
         fps.fps_cuda(torch.randn((2, 3, 128), device=cuda).transpose(1, 2), 8, start)
     with pytest.raises(ValueError):
         fps.fps_cuda(torch.randn((2, 20000, 3), device=cuda), 8, start)
+
+
+# ---------------------------------------------------------------------------
+# K1, the fused denoiser (csrc/fused_denoiser.cu), against its plain version
+# on the card, with the committed checkpoints.  Both are fp32 (TF32 off);
+# sums run in other orders, so they agree to atol 1e-4 on outputs of
+# magnitude ~1-4 (the JAX package's own fused-vs-module tolerance).
+
+K1_ATOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def fused_nets():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card and nvcc")
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    from slide_tpu_torch.models import ConditionalPointNet2
+    from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn
+    from slide_tpu_torch.pipeline import DEFAULT_CKPTS
+    from slide_tpu_torch.weights import load_flax_params, load_inference_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    nets = {}
+    for name, cfg_fn, din in [("kp", keypoint_ddpm_config, 3),
+                              ("lat", latent_ddpm_config, 51)]:
+        cfg = cfg_fn("airplane")["pointnet_config"]
+        net = ConditionalPointNet2(cfg)
+        load_flax_params(net, load_inference_params(str(DEFAULT_CKPTS[name])))
+        net = net.cuda().eval()
+        nets[name] = (net, make_fused_net_fn(cfg, net, 16), din)
+    return nets
+
+
+def _k1_inputs(net, b, din, seed, duplicates=False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pc = torch.randn((b, 16, din), generator=gen, device="cuda")
+    if duplicates:
+        pc[:, 1] = pc[:, 0]          # two equal points, and a third near them
+        pc[:, 2] = pc[:, 0]
+        pc[:, 5, :3] = pc[:, 0, :3] + 1e-4
+    ts = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    label = torch.randint(0, 13, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        return pc, net.t_embedder(ts).contiguous(), net.class_emb(label).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kp", "lat"])
+@pytest.mark.parametrize("b", [1, 5, 16, 33])
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_k1_matches_plain(fused_nets, name, b, duplicates):
+    from slide_tpu_torch.models import fused_denoiser as fd
+    net, fn, din = fused_nets[name]
+    pc, t4, cls = _k1_inputs(net, b, din, seed=b, duplicates=duplicates)
+    got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
+    want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
+    torch.cuda.synchronize()
+    assert got.shape == (b, 16, din)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=K1_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_k1_wrapper_counts_launches_and_checks_inputs(fused_nets):
+    from slide_tpu_torch.models import fused_denoiser as fd
+    net, fn, din = fused_nets["kp"]
+    pc, t4, cls = _k1_inputs(net, 4, din, seed=0)
+    ts = torch.zeros(4, dtype=torch.int32, device="cuda")
+    label = torch.zeros(4, dtype=torch.int64, device="cuda")
+    before = _build.launch_counts["fused_denoiser"]
+    fn(pc, ts, label)
+    fd.fused_forward(fn.spec, fn.packed, pc, t4, cls)
+    assert _build.launch_counts["fused_denoiser"] == before + 2
+    with pytest.raises(TypeError):
+        fd.fused_forward_cuda(fn.packed, pc.double(), t4, cls)
+    with pytest.raises(ValueError):
+        fd.fused_forward_cuda(fn.packed, pc.transpose(0, 1).contiguous().transpose(0, 1),
+                              t4, cls)
+    with pytest.raises(ValueError):
+        fd.fused_forward_cuda(fn.packed, torch.randn((4, 16, 51), device="cuda"), t4, cls)
+    with pytest.raises(ValueError):
+        fd.fused_forward_cuda(fn.packed, pc, t4[:, :100].contiguous(), cls)
+    with pytest.raises(ValueError):
+        fd.fused_forward_cuda(fn.packed, pc.cpu(), t4, cls)
+    assert _build.launch_counts["fused_denoiser"] == before + 2

@@ -1,7 +1,7 @@
 """The whole slice, position DDPM -> feature DDPM -> AE decode, built by the
-port's `build_stages` and run against the JAX composition of the same three
-stages (`benchmarks/e2e_pipeline.py::device_chain`) at narrow widths and T=4,
-on the CPU.  The JAX noise is replayed through `noise_fn` and the decode's
+port's `build_stages` (fused denoisers by default) and run against the JAX
+composition of the same three stages (`benchmarks/e2e_pipeline.py::
+device_chain`, flax modules) at narrow widths and T=4, on the CPU.  The JAX noise is replayed through `noise_fn` and the decode's
 FPS calls through the record / replay of `torch_port_helpers`.  Tolerances:
 1e-4 on the two chains (fp32 PointNet steps, sums in another order), then
 `DECODE_ATOL` on the decoded cloud."""
@@ -22,7 +22,7 @@ from slide_tpu.train import build_autoencoder as j_build_ae
 from slide_tpu_torch import _build
 from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
                                      latent_ddpm_config)
-from slide_tpu_torch.pipeline import build_stages, generate, resolve_device
+from slide_tpu_torch.pipeline import build_stages, generate, resolve_device, with_fastdpm
 from torch_port_helpers import (DECODE_ATOL, assert_close, perturb, record_jax_fps,
                                 replay_fps_in_port, small_ae_config, to_np,
                                 trim_starts)
@@ -153,3 +153,49 @@ def test_configs_stay_the_jax_presets():
     from slide_tpu.configs import autoencoder_config as j_ae, latent_ddpm_config as j_lat
     assert latent_ddpm_config() == j_lat() and autoencoder_config() == j_ae()
     assert autoencoder_config("chair") == j_ae("chair")
+
+
+def test_unfused_chains_match_the_fused_ones(narrow):
+    # fused=False runs the modules; the same noise gives the same chains
+    cfgs, _, params = narrow
+    fused = build_stages(B, 3, ckpts=params, device="cpu", configs=cfgs)
+    unfused = build_stages(B, 3, ckpts=params, device="cpu", configs=cfgs, fused=False)
+    assert fused.kp_fused is not None and fused.lat_fused is not None
+    assert unfused.kp_fused is None and unfused.lat_fused is None
+    draws = [torch.randn((B, K, 19), generator=torch.Generator().manual_seed(i))
+             for i in range(8)]
+    outs = []
+    for stages in (fused, unfused):
+        kp_noise, lat_noise = iter(d[..., :3] for d in draws), iter(draws)
+        kp = stages.sample_kp(lambda shape: next(kp_noise))
+        outs.append((kp, stages.sample_lat(lambda shape: next(lat_noise), kp)))
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(to_np(a), to_np(b), atol=1e-4)
+
+
+def test_fused_raises_outside_its_scope():
+    # npoint < N needs FPS inside the forward: the fused kernel does not take it
+    cfgs = {"kp": keypoint_ddpm_config(), "lat": latent_ddpm_config(),
+            "ae": autoencoder_config()}
+    cfgs["kp"]["pointnet_config"]["architecture"]["npoint"] = [8, 16]
+    with pytest.raises(ValueError, match="fused=False"):
+        build_stages(1, 2, device="cpu", configs=cfgs)
+    assert build_stages(1, 2, device="cpu", configs=cfgs, fused=False).kp_fused is None
+
+
+def test_fastdpm_generate_full_width_on_the_cpu():
+    # the shipped presets and the committed checkpoints, FastDPM with S=3
+    stages = with_fastdpm(build_stages(1, device="cpu"), 3)
+    calls = {"kp": 0, "lat": 0}
+
+    def counting(name, fn):
+        def wrapped(x, ts, label):
+            calls[name] += 1
+            return fn(x, ts, label)
+        return wrapped
+
+    stages.kp_fused = counting("kp", stages.kp_fused)
+    stages.lat_fused = counting("lat", stages.lat_fused)
+    out = generate(stages, seed=4)
+    assert calls == {"kp": 3, "lat": 3}
+    assert out["cloud"].shape == (1, 2048, 6) and torch.isfinite(out["cloud"]).all()

@@ -150,3 +150,27 @@ def trim_starts(calls):
     """A decode `start_fn` that hands out the JAX run's trim starts."""
     starts = iter([calls[i][1] for i in TRIM_CALLS])
     return lambda b, n: torch.as_tensor(next(starts))
+
+
+def flax_params_of(module: torch.nn.Module):
+    """A port module's parameters as the flax tree `weights.load_flax_params`
+    reads (the inverse of `weights.flax_to_torch_state`): Linear weight ->
+    kernel (in, out), GroupNorm weight -> scale, Embedding weight ->
+    embedding, as numpy fp32."""
+    tree = {}
+    for name, p in module.named_parameters():
+        *path, leaf = name.split(".")
+        owner = module.get_submodule(".".join(path))
+        arr = p.detach().cpu().numpy().astype(np.float32)
+        if leaf == "weight":
+            if isinstance(owner, torch.nn.Linear):
+                leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+            elif isinstance(owner, torch.nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "scale"
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+    return tree
