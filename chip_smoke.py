@@ -29,6 +29,26 @@ line each as soon as it ends:
            1e-4 (fp32, TF32 off)
   unfused  the slice with fused=False (the modules), T cut to 100: a warm-up
            and a counted pass; no fused launch, at least 9 FPS launches
+  k2       the fused denoiser's backward against its plain version (autograd
+           through the plain forward, run in float64 on the same inputs, relu
+           ties resolved as the kernel resolved them: see K2_TOL), kp and
+           latent nets with the committed weights, batch 32, 5 and 32 with
+           duplicate points: every element of every gradient within 1e-4 *
+           max(1, max |plain|), two launches equal; kernel ms, plain (fp32) ms
+           and the bound
+  train    position-DDPM training at the kp preset's full width and batch
+           32 on a synthetic airplane tree written here: one step's card
+           gradient against the CPU module's, every element of every
+           parameter within rtol 5e-3, atol 1e-4 (the JAX package's
+           fused-vs-module tolerance) once the relu ties that K2 resolved
+           otherwise than float64 are taken off; then `train_position_ddpm`
+           for a few warm-up steps (a checkpoint) and a counted run resumed
+           from it: ms per step, the loss at the first and last logged
+           iterations (finite), exactly one K2 and one K1 launch per step and
+           at least one FPS launch per step; then a further run of
+           `train_position_ddpm` under `torch.profiler`: the card's busy ms
+           per step, the idle share of the counted run's step, the kernels
+           and host operations that take the most time
 
 Then the nvidia-smi line, one JSON line of kernel figures, and the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
@@ -37,8 +57,10 @@ hang ends in a stack trace when the watchdog fires.
 
 import faulthandler
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,7 +69,13 @@ import torch
 from slide_tpu_torch import _build
 from slide_tpu_torch.models import fused_denoiser as fd
 from slide_tpu_torch.ops import fps as fps_mod
+from slide_tpu_torch.configs import keypoint_ddpm_config
+from slide_tpu_torch.data import get_dataloader, write_synthetic_shapenet_psr
+from slide_tpu_torch.diffusion import calc_diffusion_hyperparams, diffusion_training_loss
+from slide_tpu_torch.models import ConditionalPointNet2
 from slide_tpu_torch.pipeline import build_stages, generate, with_fastdpm
+from slide_tpu_torch.train import driver as train_driver
+from slide_tpu_torch.train.checkpoint import find_max_iter
 
 faulthandler.dump_traceback_later(600, exit=True)
 
@@ -58,6 +86,22 @@ FASTDPM_STEPS = 50
 K1_BATCHES = (16, 5)
 K1_ATOL = 1e-4
 NET_ATOL = 1e-4
+K2_BATCHES = (32, 5)   # the kp preset's training batch, and an odd one
+# K2 against its plain version run in float64 on the same fp32 inputs (at
+# exact duplicates the fp32 plain version's d(pc) sums terms of ~1e7 that
+# cancel): every element of each gradient within 1e-4 x max(1, max |plain|).
+# A relu whose input lies within fp32 rounding of 0 (a tie) passes its
+# gradient in one fp32 backward and not in another; the reference resolves
+# such ties as the kernel did (`fused_backward_reference`), and the ties so
+# resolved are logged.
+K2_TOL = 1e-4
+TRAIN_BATCH = 32
+TRAIN_WARMUP = 5
+TRAIN_STEPS = 200
+PROFILE_STEPS = 30
+# one step's card gradient against the CPU module's, per element (the JAX
+# package's fused-vs-module tolerance), once K2's tie decisions are taken off
+GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
 # (N, K) of the FPS calls of one decode, in call order: the keypoint level's
 # trim, level 2's SA stack and trim, level 3's SA stack and trim
 DECODE_FPS = [(512, 256), (256, 128), (128, 64), (64, 16), (2048, 1024),
@@ -132,10 +176,10 @@ def phase_k3(dev) -> dict:
     return per_shape, max_err
 
 
-def k1_bound_parts(lay: dict, b: int) -> tuple[float, float]:
-    """(bytes ms, operations ms) of one fused forward at batch b, from the
-    packed net's layer table: inputs, output and weights once at the memory
-    rate; the weight dots, 2 * rows * c_in * c_out each, at the fp32 rate."""
+def _table_work(lay: dict, b: int) -> tuple[int, int]:
+    """(flops, weight floats) of one fused forward at batch b, from the packed
+    net's layer table: the weight dots, 2 * rows * c_in * c_out each, and
+    every weight once."""
     n = lay["n"]
     tot = {"flops": 0, "weights": 0}
 
@@ -174,9 +218,29 @@ def k1_bound_parts(lay: dict, b: int) -> tuple[float, float]:
     dense(lay["head1"], n)
     norm(lay["head_norm"])
     dense(lay["head_out"], n)
+    return tot["flops"], tot["weights"]
+
+
+def k1_bound_parts(lay: dict, b: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one fused forward at batch b: inputs,
+    output and weights once at the memory rate; the weight dots at the fp32
+    rate."""
+    flops, weights = _table_work(lay, b)
+    n = lay["n"]
     io = b * n * lay["din"] + b * lay["t4"] + b * lay["cls"] + b * n * lay["out_dim"]
-    bytes_ = 4 * (io + tot["weights"])
-    return 1e3 * bytes_ / PEAK_BYTES, 1e3 * tot["flops"] / PEAK_FP32_FLOPS
+    return 1e3 * 4 * (io + weights) / PEAK_BYTES, 1e3 * flops / PEAK_FP32_FLOPS
+
+
+def k2_bound_parts(lay: dict, b: int) -> tuple[float, float]:
+    """(bytes ms, operations ms) of one fused backward at batch b: inputs
+    (pc, t4, cls, the cotangent, the weights) read once and the gradients
+    (of pc, t4, cls and the weights) written once at the memory rate; three
+    weight dots per forward one (the recompute, d input, d weight) at the
+    fp32 rate."""
+    flops, weights = _table_work(lay, b)
+    n = lay["n"]
+    io = 2 * (b * n * lay["din"] + b * lay["t4"] + b * lay["cls"]) + b * n * lay["out_dim"]
+    return 1e3 * 4 * (io + 2 * weights) / PEAK_BYTES, 1e3 * 3 * flops / PEAK_FP32_FLOPS
 
 
 def phase_k1(stages, dev) -> tuple[dict, float]:
@@ -258,6 +322,243 @@ def phase_net(stages, dev):
                                  f"{err_fused} (fused)")
 
 
+def k2_errors(got, want) -> dict:
+    """Per gradient (d pc, d t4, d cls, d flat): the largest element error,
+    its share of the bound K2_TOL x max(1, max |plain|), and whether every
+    element is finite and within the bound."""
+    errs = {}
+    for key, x, y in zip(("dpc", "dt4", "dcls", "dflat"), got, want):
+        err = float((x.double() - y).abs().max())
+        bound_ = K2_TOL * max(1.0, float(y.abs().max()))
+        errs[key] = {"max_abs": err, "of_bound": err / bound_,
+                     "ok": err <= bound_ and bool(torch.isfinite(x).all())}
+    return errs
+
+
+def phase_k2(stages, dev) -> tuple[dict, float]:
+    """K2 against its plain version (in float64, ties resolved as K2 did);
+    per (net, batch): kernel and plain (fp32) ms and the bound parts."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    res, worst = {}, 0.0
+    cases = [(b, False) for b in K2_BATCHES] + [(K2_BATCHES[0], True)]
+    for name, net, fn, width in [("kp", stages.kp_net, stages.kp_fused, 3),
+                                 ("lat", stages.lat_net, stages.lat_fused,
+                                  3 + stages.latent_dim)]:
+        for b, duplicates in cases:
+            pc = torch.randn((b, 16, width), generator=gen, device=dev)
+            if duplicates:
+                pc[:, 1] = pc[:, 0]
+                pc[:, 2] = pc[:, 0]
+            g = torch.randn((b, 16, width), generator=gen, device=dev)
+            ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
+            label = torch.randint(0, 13, (b,), generator=gen, device=dev)
+            with torch.no_grad():
+                t4, cls = net.t_embedder(ts), net.class_emb(label)
+            got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+            again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+            want, ties = fd.fused_backward_reference(fn.packed, pc, t4, cls, g, got,
+                                                     tol=K2_TOL)
+            torch.cuda.synchronize()
+            errs = k2_errors(got, want)
+            worst = max([worst] + [e["max_abs"] for e in errs.values()])
+            bad = [key for key, e in errs.items() if not e["ok"]]
+            if bad:
+                raise AssertionError(f"k2 {name} batch {b}: {bad} differ from plain: {errs}")
+            for key, x, z in zip(("dpc", "dt4", "dcls", "dflat"), got, again):
+                if not torch.equal(x, z):
+                    raise AssertionError(f"k2 {name} batch {b}: {key} differs between "
+                                         f"two launches")
+            if duplicates:
+                log("k2", net=name, batch=b, duplicates=True, err=errs, ties=ties,
+                    repeat_equal=True)
+                continue
+            ms = cuda_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g), 10)
+            plain_ms = cuda_ms(lambda: fd.fused_backward_plain(fn.packed, pc, t4, cls, g), 3)
+            parts = k2_bound_parts(fn.packed.layout, b)
+            res[(name, b)] = (ms, plain_ms, parts)
+            bound_ms, bound_by = bound(parts)
+            log("k2", net=name, batch=b, err=errs, ties=ties, repeat_equal=True,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes_ms=parts[0], operations_ms=parts[1])
+    return res, worst
+
+
+def _train_config(root: str, exp: str) -> dict:
+    cfg = keypoint_ddpm_config("airplane", batch_size=TRAIN_BATCH)
+    cfg["shapenet_psr_dataset_config"]["data_dir"] = root
+    cfg["train_config"].update(root_directory=exp, iters_per_logging=50)
+    return cfg
+
+
+def check_train_gradient(cfg: dict, dev) -> float:
+    """One step's gradients: the card's fused denoiser (K1 + K2) against the
+    module on the CPU, same weights, batch, keypoints, ts and z, per element
+    once the relu ties that K2 resolved otherwise than float64 are taken
+    off.  Those are found at the core: K2 relaunched on the inputs and the
+    cotangent the step gave it, against `fused_backward_reference`."""
+    pointnet = cfg["pointnet_config"]
+    net = train_driver.init_params(ConditionalPointNet2(pointnet),
+                                   torch.Generator().manual_seed(0))
+    cpu_net = ConditionalPointNet2(pointnet)
+    cpu_net.load_state_dict(net.state_dict())
+    net = net.to(dev)
+    batch = next(iter(get_dataloader(cfg["shapenet_psr_dataset_config"], seed=0)))
+    points = torch.as_tensor(batch["points"], device=dev)
+    label = torch.as_tensor(batch["label"], dtype=torch.int64)
+    x = train_driver.sample_train_keypoints(points, cfg["shapenet_psr_dataset_config"])
+    gen = torch.Generator().manual_seed(1)
+    ts = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen)
+    z = torch.randn(tuple(x.shape), generator=gen)
+    sched = calc_diffusion_hyperparams(1000, 1e-4, 0.02)
+    apply = fd.make_fused_train_fn(pointnet, net, x.shape[1])
+    core = {}
+
+    def net_fn(xt, t):
+        out = apply(xt, t, label.to(dev))
+        core.update(x=xt.detach().contiguous(), ts=t)
+        out.register_hook(lambda g: core.update(g=g.detach().contiguous()))
+        return out
+
+    loss = diffusion_training_loss(net_fn, x, calc_diffusion_hyperparams(1000, 1e-4, 0.02, dev),
+                                   ts=ts.to(dev), z=z.to(dev))
+    loss.backward()
+    cpu_loss = diffusion_training_loss(lambda xt, t: cpu_net(xt, ts=t, label=label),
+                                       x.cpu(), sched, ts=ts, z=z)
+    cpu_loss.backward()
+
+    # the core's inputs again (under autograd, to carry a change of K2's
+    # output back to the parameters), K2 on them, and its tie decisions
+    t4 = net.t_embedder(core["ts"])
+    cls = net.class_emb(label.to(dev))
+    flat = apply.packed.live_flat()
+    ins = [core["x"], t4.detach().contiguous(), cls.detach().contiguous(), flat.detach()]
+    got = fd.fused_backward_cuda(apply.packed, ins[0], ins[1], ins[2], core["g"], ins[3])
+    want, ties = fd.fused_backward_reference(apply.packed, ins[0], ins[1], ins[2],
+                                             core["g"], got, ins[3], tol=K2_TOL)
+    plain64, _ = fd.fused_backward_reference(apply.packed, ins[0], ins[1], ins[2],
+                                             core["g"], got, ins[3], max_tries=0)
+    core_errs = k2_errors(got, want)
+    params = dict(net.named_parameters())
+    taken = torch.autograd.grad(
+        [t4, cls, flat], list(params.values()),
+        [(w - p).float() for w, p in zip(want[1:], plain64[1:])], allow_unused=True)
+
+    beyond, beyond_raw, worst, where = 0, 0, 0.0, {}
+    for (name, p), q, tie in zip(params.items(), cpu_net.parameters(), taken):
+        raw = p.grad.double().cpu()
+        got_p = raw - (0 if tie is None else tie.double().cpu())
+        want_p = q.grad.double()
+        tol = GRAD_ATOL + GRAD_RTOL * want_p.abs()
+        beyond_raw += int(((raw - want_p).abs() > tol).sum())
+        err = (got_p - want_p).abs()
+        worst = max(worst, float(err.max()))
+        bad = int((err > tol).sum())
+        if bad or not bool(torch.isfinite(raw).all()):
+            where[name] = {"beyond": bad, "max_abs": float(err.max())}
+        beyond += bad
+    log("train_gradient", loss=float(loss.detach()), cpu_loss=float(cpu_loss.detach()),
+        max_abs_err=worst, beyond=beyond, beyond_before_ties=beyond_raw, ties=ties,
+        core=core_errs)
+    if where or not all(e["ok"] for e in core_errs.values()):
+        raise AssertionError(f"train: gradient differs from the CPU module's: {where}; "
+                             f"K2 at the core: {core_errs}")
+    return worst
+
+
+def _device_us(evt) -> float:
+    """Time on the card of a profiled kernel (0 for host operations and for
+    annotations such as `Optimizer.step`'s span, whose device time is that
+    of its kernels and would count twice)."""
+    if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA \
+            or getattr(evt, "is_user_annotation", False):
+        return 0.0
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile_train(cfg: dict, done: int, ms_per_step: float) -> None:
+    """`PROFILE_STEPS` more steps of `train_position_ddpm` (resumed at
+    iteration `done`) under `torch.profiler`: the card's busy ms per step,
+    the idle share of the counted run's step of `ms_per_step`, and the
+    kernels and host operations that take the most time per step."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        train_driver.train_position_ddpm(cfg, max_iters=done + PROFILE_STEPS, verbose=False)
+        torch.cuda.synchronize()
+    n = PROFILE_STEPS
+    events = prof.key_averages()
+    kernels = sorted(((e.key, _device_us(e) / 1e3 / n, e.count / n) for e in events
+                      if _device_us(e) > 0), key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n, e.count / n) for e in events
+                   if _device_us(e) == 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in kernels)
+    log("train_profile", steps=n, device_busy_ms=busy, idle_share=1.0 - busy / ms_per_step,
+        kernel_launches_per_step=sum(r[2] for r in kernels),
+        top_kernels=[list(r) for r in kernels[:10]], top_host_ops=[list(r) for r in host[:12]])
+    if busy <= 0:
+        raise AssertionError("train_profile: the profiler saw no kernel on the card")
+
+
+def phase_train(dev) -> dict:
+    """Position-DDPM training at full width through `train_position_ddpm`:
+    a warm-up run that writes a checkpoint, a counted run resumed from it,
+    then a profiled run resumed from the counted run's last checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "shapenet_psr")
+        t0 = time.perf_counter()
+        write_synthetic_shapenet_psr(root, categories=("02691156",), models_per_split=16,
+                                     num_points=3000, shape_variety=True, with_psr=False)
+        cfg = _train_config(root, os.path.join(tmp, "exp"))
+        log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH,
+            models=16 * cfg["shapenet_psr_dataset_config"]["repeat_dataset"])
+        grad_err = check_train_gradient(cfg, dev)
+
+        ckpt_dir = train_driver.experiment_dirs(cfg)[1]
+        t0 = time.perf_counter()
+        _, warm = train_driver.train_position_ddpm(cfg, max_iters=TRAIN_WARMUP, verbose=False)
+        torch.cuda.synchronize()
+        saved = find_max_iter(ckpt_dir)
+        log("train_warmup", steps=TRAIN_WARMUP, seconds=time.perf_counter() - t0,
+            losses=warm, checkpoint_iter=saved)
+        if saved != TRAIN_WARMUP - 1:
+            raise AssertionError(f"train: warm-up saved iteration {saved}, expected "
+                                 f"{TRAIN_WARMUP - 1}")
+
+        _build.launch_counts.clear()
+        t0 = time.perf_counter()
+        state, losses = train_driver.train_position_ddpm(
+            cfg, max_iters=TRAIN_WARMUP + TRAIN_STEPS, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        final = find_max_iter(ckpt_dir)
+        values = [l for _, l in losses]
+        finite = bool(np.isfinite(values).all()) and len(values) > 0
+        log("train", batch=TRAIN_BATCH, steps=TRAIN_STEPS, resumed_from=saved,
+            seconds=seconds, ms_per_step=1e3 * seconds / TRAIN_STEPS,
+            first_loss=losses[0] if losses else None,
+            last_loss=losses[-1] if losses else None, warmup_first_loss=warm[0],
+            finite=finite, launches=launches, final_checkpoint_iter=final)
+        if not finite:
+            raise AssertionError(f"train: losses {losses}")
+        if state.step != TRAIN_WARMUP + TRAIN_STEPS or final != TRAIN_WARMUP + TRAIN_STEPS - 1:
+            raise AssertionError(f"train: did not resume at iteration {TRAIN_WARMUP}: step "
+                                 f"{state.step}, last checkpoint {final}")
+        for name, want in (("fused_denoiser_bwd", TRAIN_STEPS),
+                           ("fused_denoiser", TRAIN_STEPS)):
+            if launches.get(name, 0) != want:
+                raise AssertionError(f"train: {launches.get(name, 0)} {name} launches in "
+                                     f"{TRAIN_STEPS} steps, expected {want}")
+        if launches.get("fps", 0) < TRAIN_STEPS:
+            raise AssertionError(f"train: {launches.get('fps', 0)} FPS launches in "
+                                 f"{TRAIN_STEPS} steps")
+        del state
+        profile_train(cfg, TRAIN_WARMUP + TRAIN_STEPS, 1e3 * seconds / TRAIN_STEPS)
+    return {"launches": launches, "seconds": seconds, "grad_err": grad_err}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -279,6 +580,7 @@ def main():
     stages = build_stages(BATCH, T_STEPS)
     log("slice_setup", seconds=time.perf_counter() - t0, t_steps=T_STEPS, fused=True)
     k1, k1_err = phase_k1(stages, dev)
+    k2, k2_err = phase_k2(stages, dev)
 
     # the main path: a warm-up pass, then the counted pass
     warm = generate(stages, seed=1)
@@ -294,6 +596,9 @@ def main():
     warm = generate(unfused, seed=1)
     log("unfused_slice_warmup", t_steps=T_UNFUSED, seconds=warm["seconds"])
     run_slice("unfused_slice", unfused, 0, want_fused=0)
+    del unfused
+
+    train = phase_train(dev)
 
     # FPS: one decode's worth of calls, summed
     ms = sum(per_shape[s][0] for s in DECODE_FPS)
@@ -304,13 +609,15 @@ def main():
     # 1000 times each at batch 16: the mean of the two
     nets = [k1[(name, BATCH)] for name in ("kp", "lat")]
     k1_bound, k1_by = bound([sum(r[3][i] for r in nets) / 2 for i in range(2)])
+    # K2: per launch of the training path, the kp net at its batch of 32
+    k2_main = k2[("kp", TRAIN_BATCH)]
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
         "name": "fps", "route": "cuda", "source": "slide_tpu_torch/csrc/fps.cu",
         "replaces": "slide_tpu/ops/pallas/fps.py:98",
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}, {
+        "library_ms": None, "launches_train": train["launches"].get("fps", 0)}, {
         "name": "fused_denoiser", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
@@ -320,7 +627,18 @@ def main():
         "module_ms": sum(r[2] for r in nets) / 2,
         "per_net": {name: {"ms": r[0], "plain_ms": r[1], "module_ms": r[2],
                            "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1]}
-                    for name, r in zip(("kp", "lat"), nets)}}]}), flush=True)
+                    for name, r in zip(("kp", "lat"), nets)},
+        "launches_train": train["launches"].get("fused_denoiser", 0)}, {
+        "name": "fused_denoiser_bwd", "route": "cuda",
+        "source": "slide_tpu_torch/csrc/fused_denoiser_bwd.cu",
+        "replaces": "slide_tpu/models/fused_denoiser.py:621",
+        "launches": train["launches"].get("fused_denoiser_bwd", 0),
+        "max_abs_err": k2_err, "ms": k2_main[0], "plain_ms": k2_main[1],
+        "bound_ms": bound(k2_main[2])[0], "bound_by": bound(k2_main[2])[1],
+        "library_ms": None,
+        "per_net": {f"{name}_b{b}": {"ms": r[0], "plain_ms": r[1],
+                                     "bound_ms": bound(r[2])[0], "bound_by": bound(r[2])[1]}
+                    for (name, b), r in k2.items()}}]}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

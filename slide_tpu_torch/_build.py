@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels with plain `nvcc` and loads them with
 `ctypes`.
 
-All sources under `csrc/` go into one shared library with a plain C
+All sources under `csrc/` (`*.cu`, with the headers `*.cuh` they include)
+go into one shared library with a plain C
 interface (no PyTorch headers, so the build takes seconds).  Each source is
 compiled by its own `nvcc`, all started together, then one `nvcc` links:
 
@@ -118,6 +119,10 @@ def load_kernels() -> ctypes.CDLL:
     # pc, t4, cls, weights, table, scratch, out, B, device, stream
     lib.slide_fused_denoiser.argtypes = [p, p, p, p, p, p, p, i, i, p]
     lib.slide_fused_denoiser.restype = i
+    # pc, t4, cls, g, weights, table, scratch, partial, dpc, dt4, dcls, dflat,
+    # B, flat size, device, stream
+    lib.slide_fused_denoiser_bwd.argtypes = [p] * 12 + [i, ctypes.c_longlong, i, p]
+    lib.slide_fused_denoiser_bwd.restype = i
     lib.slide_fused_table_ints.argtypes = []
     lib.slide_fused_table_ints.restype = i
     lib.slide_error_string.argtypes = [i]

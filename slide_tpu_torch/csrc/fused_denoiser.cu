@@ -1,5 +1,6 @@
 // K1: the whole ConditionalPointNet2 forward (the fused denoiser) on Hopper
-// (sm_90a), one launch per forward.
+// (sm_90a), one launch per forward.  Its layer table, `Spec`, is in
+// fused_spec.cuh (shared with K2, fused_denoiser_bwd.cu).
 //
 // Replaces the TPU kernel slide_tpu/models/fused_denoiser.py::_pallas_forward
 // (body _forward_tile): per cloud, pairwise squared distances, kNN, the SA
@@ -49,52 +50,13 @@
 #include <cuda_runtime.h>
 #include <cmath>
 
+#include "fused_spec.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCluster = 8;                  // blocks per cloud
-constexpr int kGThreads = kThreads * kCluster;
-constexpr int kMaxLayers = 6;
-constexpr int kMaxLevels = 4;
-constexpr int kMaxN = 32;
-constexpr int kMaxVec = 1024;
-constexpr int kMaxGroups = 32;
-constexpr int kBuffers = 5;
-constexpr int BM = 64, BN = 64, BK = 16;
-
-// The layer table.  All fields are ints; the order is the Python TABLE's.
-struct Dense { int w, b, cin, cout; };   // offsets into the weights; b < 0: none
-struct Norm { int s, b, c, g; };         // scale/bias offsets, channels, groups
-struct Mlp {
-    int n_layers, inject_t, inject_c, res;   // res 1: + x, 2: + res_conv(x)
-    Dense conv[kMaxLayers];
-    Norm norm[kMaxLayers];
-    Dense fc_t, fc_c, res_conv;
-};
-struct Att {
-    Dense feat_conv, grouped_conv;
-    Norm w_norm_1;
-    Dense w_conv_1;
-    Norm w_norm_2;
-    Dense w_conv_2, out_conv;
-    Norm out_norm;
-};
-struct SA { int k; Mlp mlp; Att att; };
-struct FP { int k; Mlp mlp1; Att att; Mlp mlp2; };
-struct Spec {
-    int n, din, out_dim, t4, cls, inc_abs, inc_cen, n_sa, n_fp, cloud_floats;
-    int stats, vec;                  // scratch offsets: GroupNorm statistics, vector
-    int buf[kBuffers];
-    int lvl[kMaxLevels + 1];
-    SA sa[kMaxLevels];
-    FP fp[kMaxLevels];
-    Dense head1;
-    Norm head_norm;
-    Dense head_out;
-};
+using namespace slide_fused;
 
 struct alignas(16) Smem {
     float As[BK][BM + 4];   // A tile, depth-major; +4 spreads the stores over banks

@@ -9,7 +9,7 @@ draw is not used, as in the JAX chain, so a test can replay its draws).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +42,27 @@ def calc_diffusion_hyperparams(T: int, beta_0: float, beta_T: float,
 
     return DiffusionSchedule(T=T, beta=f32(beta), alpha=f32(alpha),
                              alpha_bar=f32(alpha_bar), sigma=f32(np.sqrt(beta_tilde)))
+
+
+def diffusion_training_loss(net_fn: Callable, x0: torch.Tensor, sched: DiffusionSchedule,
+                            generator: Optional[torch.Generator] = None,
+                            ts: Optional[torch.Tensor] = None,
+                            z: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """MSE(eps_hat, z) at one uniformly drawn timestep per cloud: x_t =
+    sqrt(abar_t) x0 + sqrt(1 - abar_t) z, eps_hat = net_fn(x_t, ts).  `ts`
+    (B,) and `z` (x0's shape) are drawn from `generator` unless given (a
+    test hands in the JAX draws)."""
+    b = x0.shape[0]
+    if ts is None:
+        ts = torch.randint(0, sched.T, (b,), generator=generator,
+                           device=generator.device).to(x0.device)
+    if z is None:
+        z = torch.randn(x0.shape, generator=generator, device=generator.device,
+                        dtype=x0.dtype).to(x0.device)
+    abar = sched.alpha_bar.to(x0.device)[ts.long()].reshape((b,) + (1,) * (x0.ndim - 1))
+    x_t = torch.sqrt(abar) * x0 + torch.sqrt(1.0 - abar) * z
+    eps_hat = net_fn(x_t, ts)
+    return torch.mean((eps_hat - z) ** 2)
 
 
 @torch.no_grad()

@@ -61,7 +61,8 @@ class GroupNorm(nn.Module):
         xg = x.float().reshape(b, -1, g, c // g)
         mean = xg.mean(dim=(1, 3), keepdim=True)
         mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
-        var = torch.clamp_min(mean2 - mean * mean, 0.0)
+        # torch.maximum: gradient 0.5 at a tie, as flax's jnp.maximum
+        var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
         y = (xg - mean) * mul + self.bias.reshape(g, c // g)
         return y.reshape(x.shape)

@@ -18,6 +18,8 @@ multiply-add, so their indices are equal.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from slide_tpu_torch import _build
@@ -110,3 +112,69 @@ def furthest_point_sample(xyz: torch.Tensor, k: int, start_idx=0,
     if xyz.device.type == "cuda":
         return fps_cuda(xyz.float().contiguous(), k, start, num_forced)
     raise ValueError(f"no FPS for device {xyz.device}")
+
+
+def _take(xyz: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(xyz, 1, idx.long()[..., None].expand(-1, -1, xyz.shape[-1]))
+
+
+def sample_keypoints(xyz: torch.Tensor, k: int, *, add_centroid: bool = True,
+                     generator: Optional[torch.Generator] = None,
+                     random_subsample: bool = False):
+    """Sample `k` keypoints from each cloud (counterpart:
+    `slide_tpu/ops/fps.py::sample_keypoints`).
+
+      - add_centroid: prepend the fp32 centroid and run FPS from index 0
+        over the N+1 points, so the centroid is always keypoint 0;
+      - add_centroid=False: FPS from a random start per cloud (`generator`);
+      - random_subsample: one random permutation's first k points, shared by
+        the whole batch (`generator`; excludes add_centroid).
+
+    Returns (keypoints (B, k, D), idx (B, k) int32); with add_centroid the
+    indices are into the centroid-prepended cloud (0 == centroid)."""
+    if xyz.ndim != 3:
+        raise ValueError(f"xyz must be (B, N, D), got {tuple(xyz.shape)}")
+    b, n, _ = xyz.shape
+    if random_subsample:
+        if add_centroid:
+            raise ValueError("random_subsample excludes add_centroid")
+        if generator is None:
+            raise ValueError("random_subsample requires a generator")
+        perm = torch.randperm(n, generator=generator, device=generator.device)
+        idx = perm[:k].to(device=xyz.device, dtype=torch.int32).expand(b, k)
+        return _take(xyz, idx), idx
+    if add_centroid:
+        full = torch.cat([xyz.float().mean(dim=1, keepdim=True), xyz.float()], dim=1)
+        idx = furthest_point_sample(full, k, start_idx=0)
+        return _take(full, idx), idx
+    if generator is None:
+        raise ValueError("add_centroid=False requires a generator for the random start")
+    start = torch.randint(0, n, (b,), generator=generator, device=generator.device,
+                          dtype=torch.int32).to(xyz.device)
+    idx = furthest_point_sample(xyz, k, start_idx=start)
+    return _take(xyz, idx), idx
+
+
+def append_points_to_keypoints(points: torch.Tensor, initial_points: torch.Tensor,
+                               k: int, *, only_return_appended: bool = False):
+    """Grow a keypoint set to at least `k` points by FPS over
+    [initial | points] with the initial points forced as the first picks
+    (counterpart: `slide_tpu/ops/fps.py::append_points_to_keypoints`).  If M
+    >= k the initial points come back unchanged, with -1 indices."""
+    b, m, _ = initial_points.shape
+    if m >= k:
+        return initial_points, torch.full((b, m), -1, dtype=torch.int32,
+                                          device=initial_points.device)
+    full = torch.cat([initial_points, points], dim=1)
+    idx = furthest_point_sample(full, k, start_idx=0, num_forced=m)
+    sampled = _take(full, idx)
+    if only_return_appended:
+        return sampled[:, m:], idx[:, m:]
+    return sampled, idx
+
+
+def fps_subsample(points: torch.Tensor, k: int, *, start_idx=0) -> torch.Tensor:
+    """FPS-downsample (B, N, C) points on their first 3 channels to (B, k, C)
+    (counterpart: `slide_tpu/ops/fps.py::fps_subsample`)."""
+    idx = furthest_point_sample(points[..., :3], k, start_idx=start_idx)
+    return _take(points, idx)

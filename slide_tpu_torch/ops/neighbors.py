@@ -20,8 +20,9 @@ def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     y2 = torch.sum(y * y, dim=-1, keepdim=True)
     inner = torch.bmm(x, y.transpose(1, 2))
     d = x2 - 2.0 * inner + y2.transpose(1, 2)
-    # + 0.0 turns a -0.0 into +0.0 so equal distances compare equal in the sort
-    return d.clamp_min(0.0) + 0.0
+    # torch.maximum: gradient 0.5 at a tie, as jnp.maximum's; + 0.0 turns a
+    # -0.0 into +0.0 so equal distances compare equal in the sort
+    return torch.maximum(d, d.new_zeros(())) + 0.0
 
 
 def knn_points(query: torch.Tensor, points: torch.Tensor, k: int):

@@ -1,6 +1,7 @@
 """Point-cloud generation: position DDPM -> feature DDPM -> autoencoder decode
 (counterpart: `benchmarks/e2e_pipeline.py::build_stages` / `device_chain`,
-first three stages, and the CLI's `latent-generate`).
+first three stages, and the CLI's `latent-generate`, whose AE loading it
+follows).
 
 Both DDPM chains run the fused denoiser by default (`fused=True`, the JAX
 package's default `SLIDE_TPU_FUSED=1`): on the card every denoiser step is
@@ -37,7 +38,7 @@ from slide_tpu_torch.diffusion import (DiffusionSchedule, X0Schedule,
                                        fast_x0_denoise, x0_denoise)
 from slide_tpu_torch.models import (ConditionalPointNet2, PointAutoencoder,
                                     build_autoencoder, decode_params)
-from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn
+from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn, scope_error
 from slide_tpu_torch.weights import load_flax_params, load_inference_params
 
 _CKPT_DIR = Path(__file__).resolve().parent.parent / "benchmarks" / "results" / "ckpts"
@@ -132,8 +133,14 @@ def build_stages(batch: int, t_steps: int = 1000, ckpts: Optional[Mapping] = Non
     """Build the three stages.  `ckpts` maps kp / lat / ae to a checkpoint path
     or a flax parameter tree (default: the committed checkpoints); `configs`
     maps them to full experiment configs (default: the airplane presets).
-    `fused` runs both chains through the fused denoiser and raises when a
-    denoiser's config is outside its scope; `fused=False` runs the modules."""
+    `fused` runs both chains through the fused denoiser and raises, naming
+    the reason, when a denoiser's config is outside its scope; `fused=False`
+    runs the modules.
+
+    `ema_idx` >= 0 picks that EMA shadow of the two DDPM checkpoints; the
+    autoencoder always loads its raw parameters, as
+    `slide_tpu/cli/main.py::cmd_latent_generate` loads it: the committed AE
+    checkpoint holds no EMA shadows (no `ema_state_list`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
@@ -157,12 +164,13 @@ def build_stages(batch: int, t_steps: int = 1000, ckpts: Optional[Mapping] = Non
     num_keypoints = lat_cfg["shapenet_psr_dataset_config"]["num_keypoints"]
     kp_fused = lat_fused = None
     if fused:
+        for name, cfg in (("kp", kp_cfg), ("lat", lat_cfg)):
+            reason = scope_error(cfg["pointnet_config"], num_keypoints)
+            if reason is not None:
+                raise ValueError(f"fused=True: the {name} denoiser's config is outside "
+                                 f"the fused kernel's scope ({reason}); pass fused=False")
         kp_fused = make_fused_net_fn(kp_cfg["pointnet_config"], kp_net, num_keypoints)
         lat_fused = make_fused_net_fn(lat_cfg["pointnet_config"], lat_net, num_keypoints)
-        for name, fn in (("kp", kp_fused), ("lat", lat_fused)):
-            if fn is None:
-                raise ValueError(f"fused=True: the {name} denoiser's config is outside "
-                                 f"the fused kernel's scope; pass fused=False")
 
     return Stages(
         batch=batch, device=dev,

@@ -12,6 +12,14 @@ onto a `state_dict` key by joining it with dots and renaming the leaf:
 
 The mapping is strict: every torch parameter takes exactly one leaf and every
 leaf is used, or `load_flax_params` raises and names the leftovers.
+`module_to_flax` is the inverse: a module's parameters (or tensors keyed
+like them: EMA shadows, Adam's moments) as a flax tree of numpy arrays.
+
+The reader unpickles numpy arrays in plain containers and runs no other
+code: any other class (optax's state tuples) becomes an inert stand-in that
+keeps its constructor arguments as a plain tuple, so Adam's
+`ScaleByAdamState(count, mu, nu)` reads back as `(count, mu, nu)` and
+`EmptyState()` as `()`.
 """
 
 from __future__ import annotations
@@ -27,18 +35,21 @@ _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "embedding": "weight",
 _PICKLE_CLASSES = {"_reconstruct", "ndarray", "dtype", "scalar"}
 
 
-class _Inert:
-    """Stands in for any other class of a checkpoint (the optimizer state's
-    optax tuples): it takes the pickled state and runs no code of its own."""
-
-    def __new__(cls, *args, **kwargs):
-        return object.__new__(cls)
-
-    def __init__(self, *args, **kwargs):
-        pass
+class _Args(tuple):
+    """A pickled object of any class other than numpy's, kept as the tuple of
+    the arguments it was built from (NEWOBJ / REDUCE); a state set on it
+    (BUILD) is kept in `state`.  No code of the original class runs."""
 
     def __setstate__(self, state):
         self.state = state
+
+
+class _Inert:
+    """Stands in for any other class of a checkpoint: calling or
+    constructing it gives an `_Args` of its arguments."""
+
+    def __new__(cls, *args, **kwargs):
+        return _Args(args)
 
 
 class _NumpyUnpickler(pickle.Unpickler):
@@ -51,11 +62,17 @@ class _NumpyUnpickler(pickle.Unpickler):
         return _Inert
 
 
+def read_checkpoint(path: str) -> dict:
+    """A checkpoint's dict (`train/checkpoint.py` layout), through the
+    numpy-only unpickler."""
+    with open(path, "rb") as f:
+        return _NumpyUnpickler(f).load()
+
+
 def load_inference_params(path: str, ema_idx: int = -1) -> Mapping[str, Any]:
     """Model parameters of a checkpoint; ema_idx >= 0 selects an EMA shadow
     (counterpart: `slide_tpu/cli/main.py::load_inference_params`)."""
-    with open(path, "rb") as f:
-        ckpt = _NumpyUnpickler(f).load()
+    ckpt = read_checkpoint(path)
     if ema_idx >= 0:
         return ckpt["ema_state_list"][ema_idx]
     return ckpt["model_state_dict"]
@@ -101,3 +118,57 @@ def load_flax_params(module: torch.nn.Module,
         for k, p in own.items():
             p.copy_(torch.from_numpy(state[k]))
     return module
+
+
+def flax_path(module: torch.nn.Module, name: str) -> tuple[tuple, bool]:
+    """The flax path of a parameter and whether its array is transposed:
+    Linear weight -> kernel (in, out), GroupNorm weight -> scale,
+    Embedding weight -> embedding."""
+    *path, leaf = name.split(".")
+    owner = module.get_submodule(".".join(path))
+    transpose = False
+    if leaf == "weight":
+        if isinstance(owner, torch.nn.Linear):
+            leaf, transpose = "kernel", True
+        elif isinstance(owner, torch.nn.Embedding):
+            leaf = "embedding"
+        else:
+            leaf = "scale"
+    return tuple(path) + (leaf,), transpose
+
+
+def module_to_flax(module: torch.nn.Module,
+                   tensors: Mapping[str, torch.Tensor] | None = None) -> dict:
+    """A module's parameters as the flax tree `load_flax_params` reads, numpy
+    fp32 (the inverse of `flax_to_torch_state`).  With `tensors` (keyed by
+    parameter name, shaped like the parameters: EMA shadows, Adam's
+    moments), those are converted in their place."""
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        path, transpose = flax_path(module, name)
+        t = p if tensors is None else tensors[name]
+        arr = t.detach().cpu().numpy().astype(np.float32)
+        if transpose:
+            arr = np.ascontiguousarray(arr.T)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def flax_order(module: torch.nn.Module) -> list[str]:
+    """The module's parameter names in the order of its flax tree's leaves
+    (`jax.tree.leaves`: keys sorted at every level)."""
+    return sorted((name for name, _ in module.named_parameters()),
+                  key=lambda name: flax_path(module, name)[0])
+
+
+def flax_leaves(tree) -> list:
+    """The leaves of a tree of dicts, lists and tuples in `jax.tree.leaves`'
+    order (dict keys sorted)."""
+    if isinstance(tree, Mapping):
+        return [leaf for k in sorted(tree) for leaf in flax_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in flax_leaves(v)]
+    return [tree]

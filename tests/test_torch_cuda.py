@@ -1,5 +1,5 @@
-"""Tests of the port's CUDA kernels (FPS, the fused denoiser) on the card; they
-skip without one.
+"""Tests of the port's CUDA kernels (FPS, the fused denoiser and its
+backward) on the card; they skip without one.
 
 On a machine with the card, `nvcc` and no JAX, run them from the repository
 root with `python3 -m pytest --noconftest -q tests/test_torch_cuda.py` (the
@@ -141,3 +141,76 @@ def test_k1_wrapper_counts_launches_and_checks_inputs(fused_nets):
     with pytest.raises(ValueError):
         fd.fused_forward_cuda(fn.packed, pc.cpu(), t4, cls)
     assert _build.launch_counts["fused_denoiser"] == before + 2
+
+
+# ---------------------------------------------------------------------------
+# K2, the fused denoiser's backward (csrc/fused_denoiser_bwd.cu), against its
+# plain version (autograd through fused_forward_plain) run in float64 on the
+# same inputs and weights (at exact duplicates the fp32 plain version's
+# d(pc) sums terms of ~1e7 that cancel): every element of each gradient
+# within 1e-4 x max(1, max |plain|).  A relu whose input lies within fp32
+# rounding of 0 (a tie) passes its gradient in one fp32 backward and not in
+# another; the reference resolves such ties as K2 did
+# (`fused_backward_reference`, chip_smoke.py's K2_TOL).
+
+K2_TOL = 1e-4
+
+
+def _k2_close(fn, pc, t4, cls, g, got, what):
+    from slide_tpu_torch.models import fused_denoiser as fd
+    want, _ = fd.fused_backward_reference(fn.packed, pc, t4, cls, g, got, tol=K2_TOL)
+    for name, a, w in zip(("d pc", "d t4", "d cls", "d flat"), got, want):
+        assert torch.isfinite(a).all(), f"{what}: {name} not finite"
+        err, bound = float((a.double() - w).abs().max()), K2_TOL * max(1.0, float(w.abs().max()))
+        assert err <= bound, f"{what}: {name} differs by {err}, bound {bound}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kp", "lat"])
+@pytest.mark.parametrize("b", [1, 5, 32, 33])
+@pytest.mark.parametrize("duplicates", [False, True])
+def test_k2_matches_plain(fused_nets, name, b, duplicates):
+    from slide_tpu_torch.models import fused_denoiser as fd
+    net, fn, din = fused_nets[name]
+    pc, t4, cls = _k1_inputs(net, b, din, seed=100 + b, duplicates=duplicates)
+    if duplicates:
+        pc[:, 5] = pc[:, 0]          # exact duplicates only: d = 0 on both sides
+    g = torch.randn((b, 16, din), generator=torch.Generator(device="cuda").manual_seed(b),
+                    device="cuda")
+    got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+    again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+    _k2_close(fn, pc, t4, cls, g, got, f"{name} batch {b}")
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)               # deterministic: two launches equal
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_counts_launches_and_checks_inputs(fused_nets):
+    from slide_tpu_torch.models import fused_denoiser as fd
+    from slide_tpu_torch.configs import keypoint_ddpm_config
+    net, fn, din = fused_nets["kp"]
+    pc, t4, cls = _k1_inputs(net, 4, din, seed=0)
+    g = torch.randn((4, 16, din), device="cuda")
+    before = _build.launch_counts["fused_denoiser_bwd"]
+    fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+    # the training entry point: one K1 and one K2 launch per forward/backward
+    apply = fd.make_fused_train_fn(keypoint_ddpm_config()["pointnet_config"], net, 16)
+    k1 = _build.launch_counts["fused_denoiser"]
+    ts = torch.zeros(4, dtype=torch.int32, device="cuda")
+    apply(pc, ts, torch.zeros(4, dtype=torch.int64, device="cuda")).square().mean().backward()
+    assert _build.launch_counts["fused_denoiser_bwd"] == before + 2
+    assert _build.launch_counts["fused_denoiser"] == k1 + 1
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in net.parameters())
+    net.zero_grad(set_to_none=True)
+    with pytest.raises(TypeError):
+        fd.fused_backward_cuda(fn.packed, pc, t4, cls, g.double())
+    with pytest.raises(ValueError):
+        fd.fused_backward_cuda(fn.packed, pc, t4, cls,
+                               g.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):
+        fd.fused_backward_cuda(fn.packed, pc, t4, cls, g[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        fd.fused_backward_cuda(fn.packed, pc, t4, cls, g.cpu())
+    with pytest.raises(ValueError):
+        fd.fused_backward_cuda(fn.packed, pc, t4, cls, g, fn.packed.flat[:-32].contiguous())
+    assert _build.launch_counts["fused_denoiser_bwd"] == before + 2

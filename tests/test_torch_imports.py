@@ -1,5 +1,6 @@
 """The port stands alone: no file of `slide_tpu_torch/`, nor `chip_smoke.py`,
-imports JAX, flax, optax or anything of the JAX package `slide_tpu`."""
+imports JAX, flax, optax, PyYAML or anything of the JAX package `slide_tpu`
+(the card's machine has no PyYAML)."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,11 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FILES = sorted((REPO / "slide_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "slide_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "slide_tpu", "yaml")
+# the training slice's modules, which copy JAX-package modules that import
+# PyYAML or JAX
+TRAINING = ("train/driver.py", "train/checkpoint.py", "train/ema.py",
+            "data/synthetic.py", "data/shapenet_psr.py", "data/loader.py")
 
 
 def _imported(path: Path):
@@ -25,6 +30,8 @@ def _imported(path: Path):
 
 def test_the_port_has_files():
     assert len(FILES) > 15
+    for rel in TRAINING:
+        assert REPO / "slide_tpu_torch" / rel in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from slide_tpu_torch.weights import load_flax_params
+from slide_tpu_torch.weights import load_flax_params, module_to_flax
 
 
 def perturb(params, seed: int, scale: float = 0.1):
@@ -154,23 +154,5 @@ def trim_starts(calls):
 
 def flax_params_of(module: torch.nn.Module):
     """A port module's parameters as the flax tree `weights.load_flax_params`
-    reads (the inverse of `weights.flax_to_torch_state`): Linear weight ->
-    kernel (in, out), GroupNorm weight -> scale, Embedding weight ->
-    embedding, as numpy fp32."""
-    tree = {}
-    for name, p in module.named_parameters():
-        *path, leaf = name.split(".")
-        owner = module.get_submodule(".".join(path))
-        arr = p.detach().cpu().numpy().astype(np.float32)
-        if leaf == "weight":
-            if isinstance(owner, torch.nn.Linear):
-                leaf, arr = "kernel", np.ascontiguousarray(arr.T)
-            elif isinstance(owner, torch.nn.Embedding):
-                leaf = "embedding"
-            else:
-                leaf = "scale"
-        node = tree
-        for key in path:
-            node = node.setdefault(key, {})
-        node[leaf] = arr
-    return tree
+    reads (`weights.module_to_flax`)."""
+    return module_to_flax(module)
