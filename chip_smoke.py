@@ -13,10 +13,17 @@ line each as soon as it ends:
   k3       the FPS kernel against its plain PyTorch version at every shape
            the decode gives it (batch 16, random and zero starts): indices
            must be equal; kernel ms, plain ms and the bound per shape
+  k1_plan  per net and per occupancy (1 and 2 blocks per SM, where a plan
+           fits), the fused denoiser's plan: shared memory per block, the
+           clusters the card holds at once, row buffers in device memory,
+           whether it is the net's own plan; the kernel at batch 16 under
+           that plan against the plain version (atol 1e-4), and its ms
   k1       the fused-denoiser kernel against its plain PyTorch version, kp
            and latent nets with the committed weights, batch 16 and 5:
            max abs error (atol 1e-4); kernel ms, plain ms, the eager module's
-           ms (the unfused forward, the yardstick) and the bound
+           ms (the unfused forward, the yardstick) and the bound (the weight
+           dots as 3xTF32 on the tensor cores, which is what the kernel runs;
+           beside it the same dots at the fp32 FFMA rate, fp32_operations_ms)
   slice    the main path: position DDPM -> feature DDPM -> AE decode at full
            width, batch 16, T=1000, committed checkpoints, fused denoisers
            (the default): a warm-up pass, then the counted pass.  Seconds per
@@ -35,7 +42,8 @@ line each as soon as it ends:
            latent nets with the committed weights, batch 32, 5 and 32 with
            duplicate points: every element of every gradient within 1e-4 *
            max(1, max |plain|), two launches equal; kernel ms, plain (fp32) ms
-           and the bound
+           and the bound (fp32 FFMA, which is what the kernel runs; beside it
+           the same work as 3xTF32 on the tensor cores, tc_operations_ms)
   train    position-DDPM training at the kp preset's full width and batch
            32 on a synthetic airplane tree written here: one step's card
            gradient against the CPU module's, every element of every
@@ -55,6 +63,7 @@ line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
 hang ends in a stack trace when the watchdog fires.
 """
 
+import ctypes
 import faulthandler
 import json
 import os
@@ -106,8 +115,10 @@ GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
 # trim, level 2's SA stack and trim, level 3's SA stack and trim
 DECODE_FPS = [(512, 256), (256, 128), (128, 64), (64, 16), (2048, 1024),
               (1024, 256), (256, 64), (64, 16), (4096, 2048)]
-# published H100 SXM peaks (fp32 outside the tensor cores; HBM3)
+# published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
+# tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -221,14 +232,20 @@ def _table_work(lay: dict, b: int) -> tuple[int, int]:
     return tot["flops"], tot["weights"]
 
 
+def tc_ms(flops: float) -> float:
+    """flops of fp32 dots run as 3xTF32 on the tensor cores (three TF32
+    products per fp32 one) at the dense TF32 peak, in ms."""
+    return 1e3 * 3 * flops / PEAK_TF32_FLOPS
+
+
 def k1_bound_parts(lay: dict, b: int) -> tuple[float, float]:
     """(bytes ms, operations ms) of one fused forward at batch b: inputs,
-    output and weights once at the memory rate; the weight dots at the fp32
-    rate."""
+    output and weights once at the memory rate; the weight dots as 3xTF32 on
+    the tensor cores, which is how the kernel computes them."""
     flops, weights = _table_work(lay, b)
     n = lay["n"]
     io = b * n * lay["din"] + b * lay["t4"] + b * lay["cls"] + b * n * lay["out_dim"]
-    return 1e3 * 4 * (io + weights) / PEAK_BYTES, 1e3 * flops / PEAK_FP32_FLOPS
+    return 1e3 * 4 * (io + weights) / PEAK_BYTES, tc_ms(flops)
 
 
 def k2_bound_parts(lay: dict, b: int) -> tuple[float, float]:
@@ -236,11 +253,84 @@ def k2_bound_parts(lay: dict, b: int) -> tuple[float, float]:
     (pc, t4, cls, the cotangent, the weights) read once and the gradients
     (of pc, t4, cls and the weights) written once at the memory rate; three
     weight dots per forward one (the recompute, d input, d weight) at the
-    fp32 rate."""
+    fp32 rate (the kernel runs them on fp32 FFMA)."""
     flops, weights = _table_work(lay, b)
     n = lay["n"]
     io = 2 * (b * n * lay["din"] + b * lay["t4"] + b * lay["cls"]) + b * n * lay["out_dim"]
-    return 1e3 * 4 * (io + 2 * weights) / PEAK_BYTES, 1e3 * 3 * flops / PEAK_FP32_FLOPS
+    return 1e3 * 4 * (io + 2 * weights) / PEAK_BYTES, fp32_ms(3 * flops)
+
+
+def fp32_ms(flops: float) -> float:
+    """flops at the fp32 FFMA rate, in ms."""
+    return 1e3 * flops / PEAK_FP32_FLOPS
+
+
+def k1_max_clusters(packed) -> int:
+    """How many of K1's clusters the card holds at once with this net's
+    shared memory per block."""
+    lib = _build.load_kernels()
+    n = ctypes.c_int(0)
+    _build.check(lib, lib.slide_fused_max_clusters(packed.layout["smem_bytes"],
+                                                   packed.layout["occupancy"],
+                                                   torch.cuda.current_device(),
+                                                   ctypes.byref(n)), "fused_denoiser")
+    return n.value
+
+
+def k1_inputs(net, b: int, width: int, gen, dev):
+    pc = torch.randn((b, 16, width), generator=gen, device=dev)
+    ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
+    label = torch.randint(0, 13, (b,), generator=gen, device=dev)
+    with torch.no_grad():
+        return pc, ts, label, net.t_embedder(ts), net.class_emb(label)
+
+
+def k1_nets(stages):
+    return [("kp", stages.kp_net, stages.kp_fused, 3),
+            ("lat", stages.lat_net, stages.lat_fused, 3 + stages.latent_dim)]
+
+
+def pack_at(net, spec, occupancy: int):
+    """The net packed with K1 planned for `occupancy` blocks per SM: the plan
+    tries only that occupancy's placements."""
+    placements = fd.K1_PLACEMENTS
+    fd.K1_PLACEMENTS = tuple(p for p in placements if p[0] == occupancy)
+    try:
+        return fd.pack_weights(net, spec)
+    finally:
+        fd.K1_PLACEMENTS = placements
+
+
+def phase_k1_plans(stages, dev) -> None:
+    """Per net, K1 planned for one and for two blocks per SM (where a plan
+    fits) at the main path's batch: each checked against the plain version
+    and timed, so that the plan the net takes can be seen to be the faster."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for name, net, fn, width in k1_nets(stages):
+        pc, _, _, t4, cls = k1_inputs(net, BATCH, width, gen, dev)
+        with torch.no_grad():
+            want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
+        for occupancy in (1, 2):
+            try:
+                packed = pack_at(net, fn.spec, occupancy)
+            except ValueError as e:
+                log("k1_plan", net=name, blocks_per_sm=occupancy, fits=False, why=str(e))
+                continue
+            lay = packed.layout
+            with torch.no_grad():
+                got = fd.fused_forward_cuda(packed, pc, t4, cls)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"k1 {name} at {occupancy} blocks per SM: kernel "
+                                         f"and plain differ by {err}")
+                ms = cuda_ms(lambda: fd.fused_forward_cuda(packed, pc, t4, cls), 50)
+            log("k1_plan", net=name, blocks_per_sm=occupancy, fits=True,
+                own=lay["occupancy"] == fn.packed.layout["occupancy"],
+                smem_bytes=lay["smem_bytes"], max_clusters=k1_max_clusters(packed),
+                stage_floats=lay["stage"], rows_in_device_memory=lay["bglob"], batch=BATCH,
+                max_abs_err=err, atol=K1_ATOL, ms=ms)
+            del packed
 
 
 def phase_k1(stages, dev) -> tuple[dict, float]:
@@ -248,15 +338,10 @@ def phase_k1(stages, dev) -> tuple[dict, float]:
     module ms and the bound parts."""
     gen = torch.Generator(device=dev).manual_seed(1)
     res, max_err = {}, 0.0
-    for name, net, fn, width in [("kp", stages.kp_net, stages.kp_fused, 3),
-                                 ("lat", stages.lat_net, stages.lat_fused,
-                                  3 + stages.latent_dim)]:
+    for name, net, fn, width in k1_nets(stages):
         for b in K1_BATCHES:
-            pc = torch.randn((b, 16, width), generator=gen, device=dev)
-            ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
-            label = torch.randint(0, 13, (b,), generator=gen, device=dev)
+            pc, ts, label, t4, cls = k1_inputs(net, b, width, gen, dev)
             with torch.no_grad():
-                t4, cls = net.t_embedder(ts), net.class_emb(label)
                 got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
                 want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
                 torch.cuda.synchronize()
@@ -274,7 +359,8 @@ def phase_k1(stages, dev) -> tuple[dict, float]:
             bound_ms, bound_by = bound(parts)
             log("k1", net=name, batch=b, max_abs_err=err, atol=K1_ATOL, ms=ms,
                 plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
-                bound_by=bound_by, bytes_ms=parts[0], operations_ms=parts[1])
+                bound_by=bound_by, bytes_ms=parts[0], operations_ms=parts[1],
+                fp32_operations_ms=fp32_ms(_table_work(fn.packed.layout, b)[0]))
     return res, max_err
 
 
@@ -379,7 +465,8 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
             bound_ms, bound_by = bound(parts)
             log("k2", net=name, batch=b, err=errs, ties=ties, repeat_equal=True,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes_ms=parts[0], operations_ms=parts[1])
+                bytes_ms=parts[0], operations_ms=parts[1],
+                tc_operations_ms=tc_ms(3 * _table_work(fn.packed.layout, b)[0]))
     return res, worst
 
 
@@ -579,6 +666,7 @@ def main():
     t0 = time.perf_counter()
     stages = build_stages(BATCH, T_STEPS)
     log("slice_setup", seconds=time.perf_counter() - t0, t_steps=T_STEPS, fused=True)
+    phase_k1_plans(stages, dev)
     k1, k1_err = phase_k1(stages, dev)
     k2, k2_err = phase_k2(stages, dev)
 
@@ -608,7 +696,8 @@ def main():
     # K1: per launch of the main path, which runs the kp and latent nets
     # 1000 times each at batch 16: the mean of the two
     nets = [k1[(name, BATCH)] for name in ("kp", "lat")]
-    k1_bound, k1_by = bound([sum(r[3][i] for r in nets) / 2 for i in range(2)])
+    k1_parts = [sum(r[3][i] for r in nets) / 2 for i in range(2)]
+    k1_bound, k1_by = bound(k1_parts)
     # K2: per launch of the training path, the kp net at its batch of 32
     k2_main = k2[("kp", TRAIN_BATCH)]
     print(smi, flush=True)

@@ -116,13 +116,18 @@ def load_kernels() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.slide_fps.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.slide_fps.restype = i
-    # pc, t4, cls, weights, table, scratch, out, B, device, stream
-    lib.slide_fused_denoiser.argtypes = [p, p, p, p, p, p, p, i, i, p]
+    # pc, t4, cls, weights, table, scratch, out, B, shared memory bytes,
+    # device, stream
+    lib.slide_fused_denoiser.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.slide_fused_denoiser.restype = i
     # pc, t4, cls, g, weights, table, scratch, partial, dpc, dt4, dcls, dflat,
     # B, flat size, device, stream
     lib.slide_fused_denoiser_bwd.argtypes = [p] * 12 + [i, ctypes.c_longlong, i, p]
     lib.slide_fused_denoiser_bwd.restype = i
+    # shared memory bytes, blocks per SM, device, out: clusters the card
+    # holds at once
+    lib.slide_fused_max_clusters.argtypes = [i, i, i, p]
+    lib.slide_fused_max_clusters.restype = i
     lib.slide_fused_table_ints.argtypes = []
     lib.slide_fused_table_ints.restype = i
     lib.slide_error_string.argtypes = [i]

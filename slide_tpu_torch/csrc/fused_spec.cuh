@@ -15,9 +15,9 @@ constexpr int kMaxLevels = 4;
 constexpr int kMaxN = 32;
 constexpr int kMaxVec = 1024;
 constexpr int kMaxGroups = 32;
-constexpr int kBuffers = 5;
 constexpr int kGradBuffers = 6;
 constexpr int BM = 64, BN = 64, BK = 16;
+constexpr int kMaxStream = 128;            // K1: weight products per forward
 
 struct Dense { int w, b, cin, cout; };   // offsets into the weights; b < 0: none
 struct Norm { int s, b, c, g; };         // scale/bias offsets, channels, groups
@@ -31,6 +31,7 @@ struct Mlp {
     Norm norm[kMaxLayers];
     Dense fc_t, fc_c, res_conv;
     int z[kMaxLayers], a[kMaxLayers], h[kMaxLayers], st[kMaxLayers], out;
+    int vt, vc;                              // K1: its t and class vectors
 };
 struct Att {
     Dense feat_conv, grouped_conv;
@@ -41,13 +42,28 @@ struct Att {
     Norm out_norm;
     int t, tn, st1, u, st2, un, s, v, st3, vn, w;   // K2's tape
 };
-struct SA { int k; Mlp mlp; Att att; int x; };
-struct FP { int k; Mlp mlp1; Att att; Mlp mlp2; int x, nf; };
+// ld: K1's row stride at this level
+struct SA { int k; Mlp mlp; Att att; int x; int ld; };
+struct FP { int k; Mlp mlp1; Att att; Mlp mlp2; int x, nf; int ld; };
+// One weight product of K1's forward, in the order it runs them: the
+// weight's depth slices of bk rows stream through the cluster's ring, once
+// per pass of 16 * mt rows
+struct Stream { int w, cin, cout, bk, passes, mt; };
 struct Spec {
     int n, din, out_dim, t4, cls, inc_abs, inc_cen, n_sa, n_fp, cloud_floats;
-    int stats, vec;                  // K1 scratch offsets: GroupNorm statistics, vector
-    int buf[kBuffers];
-    int lvl[kMaxLevels + 1];
+    // K1's plan (offsets in floats): points per block, dynamic shared memory
+    // bytes, blocks per SM, device floats per block and where the injection partials start,
+    // this table's copy, the weight ring, the two row buffers (bglob 1: in
+    // the block's device scratch, else shared), the point buffer, the blocks'
+    // own level features and the small tables
+    int pts, smem_bytes, occupancy, blk_floats, vec, inj;
+    int bars, table, ring, stage;
+    int buf[2], bglob[2];
+    int pbuf, pld, hld;
+    int lvl[kMaxLevels + 1], lcap[kMaxLevels + 1];
+    int dist, knn, kmax, xyz, part, gn, red, vecs;
+    int n_stream;
+    Stream stream[kMaxStream];
     SA sa[kMaxLevels];
     FP fp[kMaxLevels];
     Dense head1;

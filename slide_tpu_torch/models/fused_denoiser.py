@@ -71,9 +71,22 @@ MAX_LEVELS = 4
 MAX_POINTS = 32
 MAX_VEC = 1024
 MAX_GROUPS = 32
-N_BUFFERS = 5
 N_GRAD_BUFFERS = 6          # K2's row-sized gradient buffers
 STATS = 3 * MAX_GROUPS      # a GroupNorm's tape: mean, inverse std, var before the clip
+# K1's plan: blocks per cloud, weight products per forward, ring stages, and
+# the dynamic shared memory a block may have on Hopper (227 KB)
+K1_CLUSTER = 8
+MAX_STREAM = 128
+K1_STAGES = 2
+K1_SMEM_BYTES = 232448
+K1_SMEM_BYTES_2 = 115712    # each of two blocks on one SM (228 KB less 1 KB a block)
+# K1's placements in the order its plan tries them: (blocks per SM, row
+# buffers in device memory).  Two blocks per SM doubles the clusters the card
+# holds at once (an H100 holds 15 clusters of 8 at one block per SM), but
+# row buffers in device memory cost more than that: on an H100 the latent
+# net at batch 16 takes 1.8x as long at two blocks per SM with its rows there
+# as at one with them in shared memory (`chip_smoke.py`'s k1_plan lines)
+K1_PLACEMENTS = ((2, (0, 0)), (1, (0, 0)), (2, (0, 1)), (2, (1, 1)), (1, (0, 1)), (1, (1, 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -219,17 +232,26 @@ _MLP = (("n_layers",), ("inject_t",), ("inject_c",), ("res",),  # res 1: +x, 2: 
         ("conv", _DENSE, MAX_LAYERS), ("norm", _NORM, MAX_LAYERS),
         ("fc_t", _DENSE), ("fc_c", _DENSE), ("res_conv", _DENSE),
         ("z", None, MAX_LAYERS), ("a", None, MAX_LAYERS), ("h", None, MAX_LAYERS),
-        ("st", None, MAX_LAYERS), ("out",))
+        ("st", None, MAX_LAYERS), ("out",),
+        ("vt",), ("vc",))                 # K1: offsets of its t and class vectors
 _ATT = (("feat_conv", _DENSE), ("grouped_conv", _DENSE), ("w_norm_1", _NORM),
         ("w_conv_1", _DENSE), ("w_norm_2", _NORM), ("w_conv_2", _DENSE),
         ("out_conv", _DENSE), ("out_norm", _NORM),
         ("t",), ("tn",), ("st1",), ("u",), ("st2",), ("un",), ("s",), ("v",),
         ("st3",), ("vn",), ("w",))
-_SA = (("k",), ("mlp", _MLP), ("att", _ATT), ("x",))
-_FP = (("k",), ("mlp1", _MLP), ("att", _ATT), ("mlp2", _MLP), ("x",), ("nf",))
+_SA = (("k",), ("mlp", _MLP), ("att", _ATT), ("x",), ("ld",))   # ld: K1's row stride
+_FP = (("k",), ("mlp1", _MLP), ("att", _ATT), ("mlp2", _MLP), ("x",), ("nf",), ("ld",))
+# one weight product of K1, in the order it runs them (`_k1_plan`)
+_STREAM = (("w",), ("cin",), ("cout",), ("bk",), ("passes",), ("mt",))
 TABLE = (("n",), ("din",), ("out_dim",), ("t4",), ("cls",), ("inc_abs",),
-         ("inc_cen",), ("n_sa",), ("n_fp",), ("cloud_floats",), ("stats",), ("vec",),
-         ("buf", None, N_BUFFERS), ("lvl", None, MAX_LEVELS + 1),
+         ("inc_cen",), ("n_sa",), ("n_fp",), ("cloud_floats",),
+         # K1's plan (`_k1_plan`)
+         ("pts",), ("smem_bytes",), ("occupancy",), ("blk_floats",), ("vec",), ("inj",),
+         ("bars",), ("table",), ("ring",), ("stage",),
+         ("buf", None, 2), ("bglob", None, 2), ("pbuf",), ("pld",), ("hld",),
+         ("lvl", None, MAX_LEVELS + 1), ("lcap", None, MAX_LEVELS + 1),
+         ("dist",), ("knn",), ("kmax",), ("xyz",), ("part",), ("gn",), ("red",), ("vecs",),
+         ("n_stream",), ("stream", _STREAM, MAX_STREAM),
          ("sa", _SA, MAX_LEVELS), ("fp", _FP, MAX_LEVELS),
          ("head1", _DENSE), ("head_norm", _NORM), ("head_out", _DENSE),
          # K2: its per-cloud floats, the level features before the KnnFP
@@ -298,12 +320,14 @@ def decode_table(schema, ints, pos: int = 0):
 @dataclasses.dataclass
 class PackedNet:
     """A network's weights in one fp32 buffer and the int32 table the kernels
-    walk; `layout` is the table read back (`decode_table`), which the plain
-    version uses to find its weights.  `sources` lists, in buffer order, the
-    parameters the buffer was packed from (`pack_flat` packs them again,
-    differentiably, from the live parameters).  `scratch` / `bwd_scratch` are
-    K1's and K2's per-cloud memory, grown to the largest batch seen and
-    reused (launches on one stream never overlap)."""
+    walk (on the card for K2; K1 takes `table_host`, a copy in host memory,
+    as its launch parameter); `layout` is the table read back
+    (`decode_table`), which the plain version uses to find its weights.
+    `sources` lists, in buffer order, the parameters the buffer was packed
+    from (`pack_flat` packs them again, differentiably, from the live
+    parameters).  `scratch` / `bwd_scratch` are K1's and K2's per-cloud
+    memory, grown to the largest batch seen and reused (launches on one
+    stream never overlap)."""
 
     flat: torch.Tensor
     table: torch.Tensor
@@ -311,6 +335,7 @@ class PackedNet:
     sources: list
     scratch: Optional[torch.Tensor] = None
     bwd_scratch: Optional[torch.Tensor] = None
+    table_host: Optional[torch.Tensor] = None
 
     def scratch_for(self, batch: int) -> torch.Tensor:
         floats = batch * self.layout["cloud_floats"]
@@ -471,6 +496,145 @@ def _tape_layout(rec: dict, n: int, cmax: int) -> None:
     rec["bwd_floats"] = pos
 
 
+def _ld(width: int) -> int:
+    """The row stride K1 gives `width` channels: the least >= width that is 4
+    mod 8 (a tensor-core fragment's 8 rows x 4 columns then fall in 32
+    different shared-memory banks)."""
+    return width + (4 - width) % 8
+
+
+def _k1_plan(rec: dict) -> None:
+    """K1's plan, into `rec`: each block owns `pts` points and their grouped
+    rows; per level the row stride `ld`; the weight stream (every product in
+    the order K1 runs it: rows per block, passes of 16 * mt rows, depth
+    slices of bk rows per ring stage); the t / class injection vectors'
+    offsets; and where everything lives: shared memory (offsets in floats,
+    `smem_bytes` in all) or, for a row buffer that does not fit, the block's
+    device scratch (`bglob`, `blk_floats`); blocks per SM (`occupancy`): the
+    first of `K1_PLACEMENTS` that fits.  Per cloud, the device scratch holds
+    the 8 blocks' scratch and their injection partials (`vec`)."""
+    n, din = rec["n"], rec["din"]
+    P = -(-n // K1_CLUSTER)
+    sa, fp = rec["sa"], rec["fp"]
+    ks = [s["k"] for s in sa] + [f["k"] for f in fp]
+    stream: list = []
+
+    def dense(d, rows):
+        stream.append((d, rows))
+
+    def mlp(m, rows):
+        for i in range(m["n_layers"]):
+            dense(m["conv"][i], rows)
+        if m["res"] == 2:
+            dense(m["res_conv"], rows)
+        convs = m["conv"][:m["n_layers"]]
+        return [c["cout"] for c in convs] + [convs[0]["cin"]]
+
+    def att(a, k):
+        for key, rows in (("grouped_conv", P * k), ("feat_conv", P), ("w_conv_1", P * k),
+                          ("w_conv_2", P * k), ("out_conv", P * k)):
+            dense(a[key], rows)
+        return [a["grouped_conv"]["cin"], a["feat_conv"]["cout"] + a["grouped_conv"]["cout"],
+                a["w_conv_1"]["cout"], a["w_conv_2"]["cout"], a["out_conv"]["cin"]]
+
+    rows_x_ld = []
+    for s in sa:
+        s["ld"] = _ld(max(mlp(s["mlp"], P * s["k"]) + att(s["att"], s["k"])))
+        rows_x_ld.append(P * s["k"] * s["ld"])
+    for f in reversed(fp):
+        widths = mlp(f["mlp1"], P * f["k"]) + att(f["att"], f["k"])
+        widths += mlp(f["mlp2"], P)[:-1]            # its input is the point buffer
+        f["ld"] = _ld(max(widths))
+        rows_x_ld.append(P * f["k"] * f["ld"])
+    dense(rec["head1"], P)
+    dense(rec["head_out"], P)
+    rec["hld"] = _ld(rec["head1"]["cout"])
+    rows_x_ld.append(P * rec["hld"])
+    if len(stream) > MAX_STREAM:
+        raise ValueError(f"K1 runs at most {MAX_STREAM} weight products, got {len(stream)}")
+
+    # a ring stage holds at least 8 depth rows of the widest product (bk
+    # rows of each, a multiple of 8, copied as one span, and 8 floats to
+    # spare: a fragment load may run 7 columns past the width)
+    least = -(-(8 * max(d["cout"] for d, _ in stream) + 8) // 32) * 32
+    rec["n_stream"] = len(stream)
+
+    # the injection vectors of every MLP
+    inj = 0
+    mlps = [s["mlp"] for s in sa] + [m for f in fp for m in (f["mlp1"], f["mlp2"])]
+    for m in mlps:
+        for flag, fc, key in (("inject_t", "fc_t", "vt"), ("inject_c", "fc_c", "vc")):
+            m[key] = inj if m[flag] else 0
+            inj += m[fc]["cout"] if m[flag] else 0
+
+    # shared memory: the ring's barriers, this table (K1 reads it there),
+    # the ring, the small tables, the blocks' own level features, the point
+    # buffer, then the row buffers
+    lcap = [din] + [s["att"]["w_conv_2"]["cout"] for s in sa]
+    for i, f in enumerate(fp):
+        lcap[i] = max(lcap[i], f["mlp2"]["conv"][f["mlp2"]["n_layers"] - 1]["cout"])
+    pwidths = [rec["head1"]["cin"]] + [f["mlp2"]["conv"][0]["cin"] for f in fp]
+    rec.update(pts=P, kmax=max([1] + ks), inj=inj, pld=_ld(max(pwidths)),
+               lcap=lcap + [0] * (MAX_LEVELS + 1 - len(lcap)))
+    big = -(-max(rows_x_ld) // 32) * 32
+    # GroupNorm's column sums: 2 x 256 floats per 256 channels of the widest;
+    # the widest injection vector
+    red = 512 * max(1, -(-max(nd["c"] for nd in _records(rec, {"s", "b", "c", "g"})) // 256))
+    vecs = max([1] + [m[fc]["cout"] for m in mlps for flag, fc in
+                      (("inject_t", "fc_t"), ("inject_c", "fc_c")) if m[flag]])
+
+    def layout(stage, glob):
+        pos = 64                     # the ring's 2 * K1_STAGES + 1 barriers, then K1's `Plan`
+        fields = dict(bars=0, table=pos, stage=stage)
+        pos += -(-table_ints() // 32) * 32
+        fields["ring"] = pos
+        pos += K1_STAGES * stage
+        for key, floats in (("xyz", n * 3), ("dist", P * n), ("knn", P * rec["kmax"]),
+                            ("part", 4 * MAX_GROUPS), ("gn", 2 * MAX_GROUPS), ("red", red),
+                            ("vecs", vecs), ("pbuf", P * rec["pld"])):
+            fields[key] = pos
+            pos += -(-floats // 32) * 32
+        fields["lvl"] = []
+        for cap in lcap:
+            fields["lvl"].append(pos)
+            pos += -(-P * cap // 32) * 32
+        fields["lvl"] += [0] * (MAX_LEVELS + 1 - len(lcap))
+        fields["buf"], gpos = [], 0
+        for g in glob:
+            fields["buf"].append(gpos if g else pos)
+            if g:
+                gpos += big
+            else:
+                pos += big
+        fields.update(bglob=list(glob), blk_floats=gpos, smem_bytes=4 * pos)
+        return fields
+
+    # the first placement that fits; in each, ring stages as large as fit
+    # (fewer, larger stages measured faster): 32 KB, or a size up to 16 rows
+    # of 1024 floats that holds 8 to 128 rows of some product
+    sizes = {-(-(bk * d["cout"] + 8) // 32) * 32 for d, _ in stream
+             for bk in (8, 16, 32, 64, 128)} | {8192}
+    sizes = sorted((z for z in sizes if least <= z <= 8224), reverse=True) or [least]
+    plans = [(occ, stage, glob) for occ, glob in K1_PLACEMENTS for stage in sizes]
+    for occ, *plan in plans:
+        fields = layout(*plan)
+        if fields["smem_bytes"] <= (K1_SMEM_BYTES_2 if occ == 2 else K1_SMEM_BYTES):
+            fields["occupancy"] = occ
+            break
+    else:
+        raise ValueError(f"K1 needs {fields['smem_bytes']} bytes of shared memory, the "
+                         f"card gives {K1_SMEM_BYTES}")
+    rec.update(fields)
+    rec["stream"] = []
+    for d, rows in stream:
+        mt = 2 if d["cout"] <= 512 and rows > 16 else 1
+        bk = min(8 * ((rec["stage"] - 8) // (8 * d["cout"])), -(-d["cin"] // 8) * 8)
+        rec["stream"].append(dict(w=d["w"], cin=d["cin"], cout=d["cout"], bk=bk,
+                                  passes=max(1, -(-rows // (16 * mt))), mt=mt))
+    rec["vec"] = K1_CLUSTER * rec["blk_floats"]
+    rec["cloud_floats"] = rec["vec"] + -(-K1_CLUSTER * inj // 32) * 32
+
+
 def pack_weights(net: ConditionalPointNet2, spec: Mapping) -> PackedNet:
     """Pack a loaded port `ConditionalPointNet2` (weights from
     `weights.load_flax_params`) into one fp32 buffer and the kernels' table,
@@ -500,26 +664,17 @@ def pack_weights(net: ConditionalPointNet2, spec: Mapping) -> PackedNet:
                          f"{max(cmax, spec['t4'], spec['cls'])}")
     if max(nd["g"] for nd in _records(rec, {"s", "b", "c", "g"})) > MAX_GROUPS:
         raise ValueError(f"the fused kernels take at most {MAX_GROUPS} GroupNorm groups")
-    # K1's per-cloud scratch: five (rows x cmax) buffers, the level features,
-    # the GroupNorm statistics (mean and inverse std of up to 32 groups) and
-    # the injection vector
-    rmax = n * max([1] + [s["k"] for s in spec["sa"] + spec["fp"]])
-    big = -(-rmax * cmax // 32) * 32
-    lvl = -(-n * cmax // 32) * 32
-    rec["buf"] = [i * big for i in range(N_BUFFERS)]
-    rec["lvl"] = [N_BUFFERS * big + i * lvl for i in range(MAX_LEVELS + 1)]
-    rec["stats"] = N_BUFFERS * big + (MAX_LEVELS + 1) * lvl
-    rec["vec"] = rec["stats"] + 2 * MAX_GROUPS
-    rec["cloud_floats"] = rec["vec"] + MAX_VEC
+    _k1_plan(rec)
     _tape_layout(rec, n, cmax)
 
     ints = encode_table(TABLE, rec)
     dev = net.head_conv1.weight.device
     with torch.no_grad():
         flat = pack_flat(p.sources).to(dev).contiguous()
-    table = torch.tensor(ints, dtype=torch.int32, device=dev)
+    table_host = torch.tensor(ints, dtype=torch.int32)
     layout, _ = decode_table(TABLE, ints)
-    return PackedNet(flat=flat, table=table, layout=layout, sources=p.sources)
+    return PackedNet(flat=flat, table=table_host.to(dev), layout=layout, sources=p.sources,
+                     table_host=table_host)
 
 
 # ---------------------------------------------------------------------------
@@ -700,8 +855,9 @@ def _io_shapes(lay: Mapping, b: int) -> dict:
 def fused_forward_cuda(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
                        cls: torch.Tensor, flat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1 (`csrc/fused_denoiser.cu`), one cluster of blocks per cloud,
-    over the weights `flat` (laid out as `packed.flat`, which is the default).
-    Takes contiguous fp32 CUDA tensors of the packed net's widths; raises on
+    over the weights `flat` (laid out as `packed.flat`, which is the default;
+    16-byte aligned: the kernel copies its slices with bulk copies).  Takes
+    contiguous fp32 CUDA tensors of the packed net's widths; raises on
     anything else."""
     lay = packed.layout
     flat = packed.flat if flat is None else flat
@@ -711,15 +867,17 @@ def fused_forward_cuda(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
     shapes = {**_io_shapes(lay, b), "weights": tuple(packed.flat.shape)}
     _check_cuda("fused_forward_cuda", packed,
                 {"pc": pc, "t4": t4, "cls": cls, "weights": flat}, shapes)
+    if flat.data_ptr() % 16:
+        raise ValueError("fused_forward_cuda: the weights must be 16-byte aligned")
     dev = pc.device
     lib = _load_checked(packed)
     out = torch.empty((b, lay["n"], lay["out_dim"]), dtype=torch.float32, device=dev)
     scratch = packed.scratch_for(b)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.slide_fused_denoiser(pc.data_ptr(), t4.data_ptr(), cls.data_ptr(),
-                                    flat.data_ptr(), packed.table.data_ptr(),
+                                    flat.data_ptr(), packed.table_host.data_ptr(),
                                     scratch.data_ptr(), out.data_ptr(), b,
-                                    dev.index, stream)
+                                    lay["smem_bytes"], dev.index, stream)
     _build.check(lib, code, "fused_denoiser")
     _build.launch_counts["fused_denoiser"] += 1
     return out

@@ -118,6 +118,52 @@ def test_k1_matches_plain(fused_nets, name, b, duplicates):
     torch.testing.assert_close(got, want, atol=K1_ATOL, rtol=0)
 
 
+def _random_fused_net(cfg, n, seed):
+    """A fused net over random weights: the JAX package's initialisers, then
+    every parameter (biases and GroupNorm affines included) moved by 0.1 x
+    N(0, 1)."""
+    from slide_tpu_torch.models import ConditionalPointNet2
+    from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn
+    from slide_tpu_torch.train.driver import init_params
+    gen = torch.Generator().manual_seed(seed)
+    net = init_params(ConditionalPointNet2(cfg), gen)
+    with torch.no_grad():
+        for p in net.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    net = net.cuda().eval()
+    return net, make_fused_net_fn(cfg, net, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,b", [
+    ("lat32", 32, 3),     # 1024 grouped rows per cloud, widths up to 779: rows in device memory
+    ("kp8", 8, 5),        # one point per block
+    ("kp", 16, 300),      # 2400 blocks: several waves
+])
+def test_k1_matches_plain_scope(cuda, case, n, b):
+    # K1 at the edges of its stated scope, random weights, against its plain
+    # version at atol 1e-4
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    from slide_tpu_torch.models import fused_denoiser as fd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_fn = latent_ddpm_config if case.startswith("lat") else keypoint_ddpm_config
+    cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+    assert fd.scope_error(cfg, n) is None
+    net, fn = _random_fused_net(cfg, n, seed=n + b)
+    din = 3 + cfg["in_fea_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    pc = torch.randn((b, n, din), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    label = torch.randint(0, 13, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts).contiguous(), net.class_emb(label).contiguous()
+        got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
+        want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, din) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=K1_ATOL, rtol=0)
+
+
 @pytest.mark.cuda
 def test_k1_wrapper_counts_launches_and_checks_inputs(fused_nets):
     from slide_tpu_torch.models import fused_denoiser as fd

@@ -140,6 +140,32 @@ def test_packed_table_reads_back():
     assert lay["n_sa"] == 2 and lay["sa"][2]["k"] == 0   # unused slots are zeros
 
 
+@pytest.mark.parametrize("cfg_fn,n,occupancy,rows_in_device_memory", [
+    ("kp", 16, 2, [0, 0]),       # fits in half the shared memory: two blocks per SM
+    ("lat", 16, 1, [0, 0]),      # every activation in shared memory, one block per SM
+    ("lat", 32, 2, [1, 1]),      # 1024 grouped rows per cloud: rows in device memory
+])
+def test_k1_plan_placements(cfg_fn, n, occupancy, rows_in_device_memory, monkeypatch):
+    # K1's plan takes the first of K1_PLACEMENTS that fits, at the shipped
+    # widths; limited to two blocks per SM, the latent net at 16 points puts
+    # its row buffers in device memory
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    cfg = {"kp": keypoint_ddpm_config, "lat": latent_ddpm_config}[cfg_fn](
+        "airplane", num_keypoints=n)["pointnet_config"]
+    net = ConditionalPointNet2(cfg)
+    lay = tf.pack_weights(net, tf.build_spec(cfg, n)).layout
+    limit = {1: tf.K1_SMEM_BYTES, 2: tf.K1_SMEM_BYTES_2}
+    assert (lay["occupancy"], lay["bglob"]) == (occupancy, rows_in_device_memory)
+    assert lay["smem_bytes"] <= limit[occupancy]
+    assert (lay["blk_floats"] > 0) == any(rows_in_device_memory)
+    if (cfg_fn, n) == ("lat", 16):
+        monkeypatch.setattr(tf, "K1_PLACEMENTS",
+                            tuple(p for p in tf.K1_PLACEMENTS if p[0] == 2))
+        lay = tf.pack_weights(net, tf.build_spec(cfg, n)).layout
+        assert (lay["occupancy"], lay["bglob"]) == (2, [1, 1])
+        assert lay["smem_bytes"] <= limit[2] and lay["blk_floats"] > 0
+
+
 @pytest.mark.parametrize("name", ["kp", "lat_topk", "kp_ckpt"])
 def test_plain_matches_jax_fused(name):
     cfg, net, params, din = _case(name)
@@ -169,6 +195,63 @@ def test_duplicate_points_stay_finite(name):
     x[:, 7:] = x[:, 6:7]
     got = tf.make_fused_net_fn(cfg, net, N)(*_t(x, ts, label))
     assert got.shape == (2, N, din) and torch.isfinite(got).all()
+
+
+# ---------------------------------------------------------------------------
+# K1's product arithmetic (3xTF32 on the tensor cores), emulated on the CPU:
+# does it keep the card's gate (K1 within 1e-4 of the fp32 plain version)?
+
+K1_ATOL = 1e-4
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits), to nearest, ties away from zero,
+    through its int32 view: K1's rounding (cvt.rna.tf32.f32)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tf32_rounding():
+    # ties go away from zero; below half an ulp (2^-10) rounds down
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11, -(1.0 + 2 ** -11),
+                      1.0 + 2 ** -12, -7.25])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9, -(1.0 + 2 ** -10), 1.0, -7.25])
+    assert torch.equal(_tf32(x), want)
+    hi = _tf32(x)
+    assert torch.equal(_tf32(hi), hi)
+
+
+def _dense_3xtf32(x, flat, d):
+    """K1's weight product: x and W split into TF32 hi + lo parts, the three
+    products lo.hi + hi.lo + hi.hi summed in fp32, then the bias.  The
+    injection vectors (one row per cloud) stay fp32, as in K1."""
+    if x.dim() < 3:
+        return _PLAIN_DENSE(x, flat, d)
+    w = flat[d["w"]:d["w"] + d["cin"] * d["cout"]].view(d["cin"], d["cout"])
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    y = torch.matmul(xl, wh) + torch.matmul(xh, wl) + torch.matmul(xh, wh)
+    if d["b"] >= 0:
+        y = y + flat[d["b"]:d["b"] + d["cout"]]
+    return y
+
+
+_PLAIN_DENSE = tf._dense
+
+
+@pytest.mark.parametrize("name", ["kp", "lat"])
+def test_3xtf32_products_keep_the_k1_gate(name, monkeypatch):
+    cfg = (j_kp_config if name == "kp" else j_lat_config)("airplane")["pointnet_config"]
+    net = load_flax_params(ConditionalPointNet2(cfg),
+                           load_inference_params(str(DEFAULT_CKPTS[name]))).eval()
+    fn = tf.make_fused_net_fn(cfg, net, N)
+    x, ts, label = _t(*_inputs(5, 3 + cfg["in_fea_dim"], seed=11))
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts), net.class_emb(label.long())
+        want = tf.fused_forward_plain(fn.spec, fn.packed, x, t4, cls)
+        monkeypatch.setattr(tf, "_dense", _dense_3xtf32)
+        got = tf.fused_forward_plain(fn.spec, fn.packed, x, t4, cls)
+    err = float((got - want).abs().max())
+    assert 0 < err <= K1_ATOL, err
 
 
 def _chain_noise(key, shape, steps):
