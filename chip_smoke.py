@@ -11,8 +11,10 @@ line each as soon as it ends:
   build    one nvcc per kernel source, all at once, then the link: seconds
            and the ptxas report
   k3       the FPS kernel against its plain PyTorch version at every shape
-           the decode gives it (batch 16, random and zero starts): indices
-           must be equal; kernel ms, plain ms and the bound per shape
+           the decode gives it (batch 16, random and zero starts) and at
+           training's (batch 32, 2049 -> 16): indices must be equal; the
+           threads per block (`threads_for`), kernel ms, plain ms and the
+           bound per shape
   k1_plan  per net and per occupancy (1 and 2 blocks per SM, where a plan
            fits), the fused denoiser's plan: shared memory per block, the
            clusters the card holds at once, row buffers in device memory,
@@ -42,8 +44,11 @@ line each as soon as it ends:
            latent nets with the committed weights, batch 32, 5 and 32 with
            duplicate points: every element of every gradient within 1e-4 *
            max(1, max |plain|), two launches equal; kernel ms, plain (fp32) ms
-           and the bound (fp32 FFMA, which is what the kernel runs; beside it
-           the same work as 3xTF32 on the tensor cores, tc_operations_ms)
+           and the bound (the three weight dots per forward one as 3xTF32 on
+           the tensor cores, which is what the kernel runs; beside it the same
+           work at the fp32 FFMA rate, fp32_operations_ms); the clusters held
+           at once and the waves; the launch's parts from the profiler: the
+           chain, the weight-gradient kernel, the parts' sum, the gather
   train    position-DDPM training at the kp preset's full width and batch
            32 on a synthetic airplane tree written here: one step's card
            gradient against the CPU module's, every element of every
@@ -115,6 +120,9 @@ GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
 # trim, level 2's SA stack and trim, level 3's SA stack and trim
 DECODE_FPS = [(512, 256), (256, 128), (128, 64), (64, 16), (2048, 1024),
               (1024, 256), (256, 64), (64, 16), (4096, 2048)]
+# (N, K, batch) of training's call (the keypoints of a 2048-point cloud and
+# its centroid)
+TRAIN_FPS = (2049, 16, 32)
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -163,11 +171,11 @@ def bound(parts) -> tuple[float, str]:
 def phase_k3(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     per_shape, max_err = {}, 0
-    for n, k in sorted(set(DECODE_FPS)):
-        xyz = torch.randn((BATCH, n, 3), generator=gen, device=dev)
-        starts = {"random": torch.randint(0, n, (BATCH,), generator=gen, device=dev,
+    for n, k, b in sorted({(n, k, BATCH) for n, k in DECODE_FPS} | {TRAIN_FPS}):
+        xyz = torch.randn((b, n, 3), generator=gen, device=dev)
+        starts = {"random": torch.randint(0, n, (b,), generator=gen, device=dev,
                                           dtype=torch.int32),
-                  "zero": torch.zeros((BATCH,), dtype=torch.int32, device=dev)}
+                  "zero": torch.zeros((b,), dtype=torch.int32, device=dev)}
         for kind, start in starts.items():
             got = fps_mod.fps_cuda(xyz, k, start)
             want = fps_mod.fps_plain(xyz, k, start)
@@ -179,11 +187,12 @@ def phase_k3(dev) -> dict:
         start = starts["random"]
         ms = cuda_ms(lambda: fps_mod.fps_cuda(xyz, k, start), reps=20)
         plain_ms = cuda_ms(lambda: fps_mod.fps_plain(xyz, k, start), reps=2)
-        parts = fps_bound_parts(BATCH, n, k)
+        parts = fps_bound_parts(b, n, k)
         per_shape[(n, k)] = (ms, plain_ms, parts)
         bound_ms, bound_by = bound(parts)
-        log("k3", n=n, k=k, batch=BATCH, equal=True, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by)
+        log("k3", n=n, k=k, batch=b, equal=True, threads=fps_mod.threads_for(n), ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
     return per_shape, max_err
 
 
@@ -252,12 +261,12 @@ def k2_bound_parts(lay: dict, b: int) -> tuple[float, float]:
     """(bytes ms, operations ms) of one fused backward at batch b: inputs
     (pc, t4, cls, the cotangent, the weights) read once and the gradients
     (of pc, t4, cls and the weights) written once at the memory rate; three
-    weight dots per forward one (the recompute, d input, d weight) at the
-    fp32 rate (the kernel runs them on fp32 FFMA)."""
+    weight dots per forward one (the recompute, d input, d weight) as 3xTF32
+    on the tensor cores, which is how the kernel computes them."""
     flops, weights = _table_work(lay, b)
     n = lay["n"]
     io = 2 * (b * n * lay["din"] + b * lay["t4"] + b * lay["cls"]) + b * n * lay["out_dim"]
-    return 1e3 * 4 * (io + 2 * weights) / PEAK_BYTES, fp32_ms(3 * flops)
+    return 1e3 * 4 * (io + 2 * weights) / PEAK_BYTES, tc_ms(3 * flops)
 
 
 def fp32_ms(flops: float) -> float:
@@ -275,6 +284,43 @@ def k1_max_clusters(packed) -> int:
                                                    torch.cuda.current_device(),
                                                    ctypes.byref(n)), "fused_denoiser")
     return n.value
+
+
+def k2_max_clusters(packed) -> int:
+    """How many of K2's chain clusters the card holds at once under this
+    net's K2 plan."""
+    lib = _build.load_kernels()
+    lay2 = packed.layout2
+    n = ctypes.c_int(0)
+    _build.check(lib, lib.slide_fused_bwd_max_clusters(
+        lay2["smem_bytes"], lay2["cluster"], lay2["occupancy"], torch.cuda.current_device(),
+        ctypes.byref(n)), "fused_denoiser_bwd")
+    return n.value
+
+
+def k2_parts_ms(fn, reps: int = 5) -> dict:
+    """Device ms per launch of K2's parts, from the profiler: the chain, the
+    weight-gradient kernel, the parts' sum, and the rest (the gather of the
+    transposed weights and the wrapper's other kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {"chain": 0.0, "weight_grad": 0.0, "parts_sum": 0.0, "rest": 0.0}
+    for e in prof.key_averages():
+        us = _device_us(e)
+        if "fused_denoiser_bwd_kernel" in e.key:
+            parts["chain"] += us
+        elif "weight_grad_kernel" in e.key:
+            parts["weight_grad"] += us
+        elif "sum_parts_kernel" in e.key:
+            parts["parts_sum"] += us
+        else:
+            parts["rest"] += us
+    return {k: v / 1e3 / reps for k, v in parts.items()}
 
 
 def k1_inputs(net, b: int, width: int, gen, dev):
@@ -421,6 +467,19 @@ def k2_errors(got, want) -> dict:
     return errs
 
 
+def k2_case(net, b: int, width: int, gen, dev, duplicates: bool = False):
+    pc = torch.randn((b, 16, width), generator=gen, device=dev)
+    if duplicates:
+        pc[:, 1] = pc[:, 0]
+        pc[:, 2] = pc[:, 0]
+    g = torch.randn((b, 16, width), generator=gen, device=dev)
+    ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
+    label = torch.randint(0, 13, (b,), generator=gen, device=dev)
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts), net.class_emb(label)
+    return pc, t4, cls, g
+
+
 def phase_k2(stages, dev) -> tuple[dict, float]:
     """K2 against its plain version (in float64, ties resolved as K2 did);
     per (net, batch): kernel and plain (fp32) ms and the bound parts."""
@@ -431,15 +490,7 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
                                  ("lat", stages.lat_net, stages.lat_fused,
                                   3 + stages.latent_dim)]:
         for b, duplicates in cases:
-            pc = torch.randn((b, 16, width), generator=gen, device=dev)
-            if duplicates:
-                pc[:, 1] = pc[:, 0]
-                pc[:, 2] = pc[:, 0]
-            g = torch.randn((b, 16, width), generator=gen, device=dev)
-            ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
-            label = torch.randint(0, 13, (b,), generator=gen, device=dev)
-            with torch.no_grad():
-                t4, cls = net.t_embedder(ts), net.class_emb(label)
+            pc, t4, cls, g = k2_case(net, b, width, gen, dev, duplicates)
             got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
             again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
             want, ties = fd.fused_backward_reference(fn.packed, pc, t4, cls, g, got,
@@ -460,13 +511,19 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
                 continue
             ms = cuda_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g), 10)
             plain_ms = cuda_ms(lambda: fd.fused_backward_plain(fn.packed, pc, t4, cls, g), 3)
+            launch = k2_parts_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g))
             parts = k2_bound_parts(fn.packed.layout, b)
             res[(name, b)] = (ms, plain_ms, parts)
             bound_ms, bound_by = bound(parts)
+            lay2 = fn.packed.layout2
+            clusters = k2_max_clusters(fn.packed)
             log("k2", net=name, batch=b, err=errs, ties=ties, repeat_equal=True,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 bytes_ms=parts[0], operations_ms=parts[1],
-                tc_operations_ms=tc_ms(3 * _table_work(fn.packed.layout, b)[0]))
+                fp32_operations_ms=fp32_ms(3 * _table_work(fn.packed.layout, b)[0]),
+                blocks_per_cloud=lay2["cluster"], blocks_per_sm=lay2["occupancy"],
+                max_clusters=clusters, waves=-(-b // clusters), parts_ms=launch,
+                weight_grad_ms=launch["weight_grad"], weight_grad_splits=fn.packed.splits)
     return res, worst
 
 

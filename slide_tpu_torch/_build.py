@@ -114,16 +114,26 @@ def load_kernels() -> ctypes.CDLL:
         build()
     lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.slide_fps.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.slide_fps.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.slide_fps.restype = i
     # pc, t4, cls, weights, table, scratch, out, B, shared memory bytes,
     # device, stream
     lib.slide_fused_denoiser.argtypes = [p, p, p, p, p, p, p, i, i, i, p]
     lib.slide_fused_denoiser.restype = i
-    # pc, t4, cls, g, weights, table, scratch, partial, dpc, dt4, dcls, dflat,
-    # B, flat size, device, stream
-    lib.slide_fused_denoiser_bwd.argtypes = [p] * 12 + [i, ctypes.c_longlong, i, p]
+    # pc, t4, cls, g, [weights, transposed weights], table, table2, scratch,
+    # jobs, tiles, tiles' count, depth parts, parts' sums, dpc, dt4, dcls,
+    # dflat, B, flat size, blocks per cloud, blocks per SM, shared memory
+    # bytes, tape floats per cloud, t4 / cls / cotangent floats per cloud,
+    # device, stream
+    lib.slide_fused_denoiser_bwd.argtypes = ([p] * 10 + [i, i, p] + [p] * 4 + [i] * 5
+                                             + [ctypes.c_longlong, i, i, i, i, p])
     lib.slide_fused_denoiser_bwd.restype = i
+    # shared memory bytes, blocks per cloud, blocks per SM, device, out:
+    # K2's clusters the card holds at once
+    lib.slide_fused_bwd_max_clusters.argtypes = [i, i, i, i, p]
+    lib.slide_fused_bwd_max_clusters.restype = i
+    lib.slide_fused_table2_ints.argtypes = []
+    lib.slide_fused_table2_ints.restype = i
     # shared memory bytes, blocks per SM, device, out: clusters the card
     # holds at once
     lib.slide_fused_max_clusters.argtypes = [i, i, i, p]

@@ -36,11 +36,14 @@ CUDA tensor; on the card it launches or raises.
 
 Training (`make_fused_train_fn`) wraps the same forward in a
 `torch.autograd.Function` whose backward is K2, `csrc/fused_denoiser_bwd.cu`
-(counterpart: the TPU kernel `_pallas_backward`): it recomputes the forward
-of each cloud, keeps every activation the backward needs in a per-cloud
-tape (whose offsets are fields of the same table), and walks the layers in
-reverse.  On the CPU the backward is autograd through `fused_forward_plain`,
-recomputed inside `backward`: K2's plain version.  The clamps (distances at
+(counterpart: the TPU kernel `_pallas_backward`): per cloud, a chain that
+recomputes the forward, keeps every activation the backward needs in a
+per-cloud tape (offsets in the layer table and in K2's own, `TABLE2`) and
+walks the layers in reverse, writing each product's output gradient beside
+its input; then a grouped kernel that computes every weight gradient from
+the tape over the whole batch (`_k2_jobs`; plain version
+`weight_grads_plain`).  On the CPU the backward is autograd through
+`fused_forward_plain`, recomputed inside `backward`: K2's plain version.  The clamps (distances at
 0, GroupNorm variance at 0) are `torch.maximum`, whose gradient at a tie is
 0.5, as `jnp.maximum`'s is; K2 follows the same rule.
 
@@ -87,6 +90,26 @@ K1_SMEM_BYTES_2 = 115712    # each of two blocks on one SM (228 KB less 1 KB a b
 # net at batch 16 takes 1.8x as long at two blocks per SM with its rows there
 # as at one with them in shared memory (`chip_smoke.py`'s k1_plan lines)
 K1_PLACEMENTS = ((2, (0, 0)), (1, (0, 0)), (2, (0, 1)), (2, (1, 1)), (1, (0, 1)), (1, (1, 1)))
+# K2's placements (blocks per cloud, blocks per SM): 4 at 2 per SM when no
+# product is wider than K2_WIDE_2 columns, else 8 at 1 (two blocks per SM
+# leave a thread 112 registers, too few for wider products: they spill).  On
+# an H100 at batch 32 the kp net is fastest at (4, 2) (62 clusters at once:
+# one wave), the latent net at (8, 1) (15 at once: three waves, but half the
+# rows a block), of the four (4|8, 1|2) (PERF.md §6)
+K2_PLACEMENTS = ((4, 2), (8, 1))
+K2_WIDE_2 = 256
+K2_MAX_STREAM = 2 * MAX_STREAM    # the recompute's products and the backward's
+# K2's weight-gradient kernel: output tiles of DW_TILE x DW_TILE (the
+# kernel's kDwTile); a job's depth split in one part per DW_PART_ROWS of its
+# rows per cloud, at most DW_MAX_SPLITS (a grouped layer's 256 rows: 8
+# parts, a point layer's 16: 1).  On an H100 at batch 32 the kp net's
+# kernel takes 0.32 ms so split and 0.61 at 4 parts of 64 rows
+# (`PERF.md` §6)
+DW_TILE = 128
+DW_MAX_SPLITS = 8
+DW_PART_ROWS = 32
+# where a weight-gradient product's rows come from (`_k2_jobs`)
+TAPE, FROM_T4, FROM_CLS, FROM_G = 0, 1, 2, 3
 
 
 # ---------------------------------------------------------------------------
@@ -221,27 +244,34 @@ def scope_error(config: Mapping[str, Any], n_points: int) -> Optional[str]:
 # field, in order; unused slots are zeros.
 
 _DENSE = (("w",), ("b",), ("cin",), ("cout",))   # b = -1: no bias
-_NORM = (("s",), ("b",), ("c",), ("g",))         # c channels, g groups
+# c channels, g groups; p: K2's tape of the per-block sums of d scale / d bias
+_NORM = (("s",), ("b",), ("c",), ("g",), ("p",))
 # The fields after the weights are K2's tape: offsets into its per-cloud
 # scratch of each activation the backward reads (z: a conv's output, a: after
 # GroupNorm and relu, h: after the injection, st: the GroupNorm's STATS,
 # out: the MLP's output after the residual; t/tn, u/un, v/vn: the attention's
 # three GroupNorms' inputs and outputs, s its scores, w its softmax weights;
-# x: a level's grouped rows, nf: a KnnFP level's [interp, skip, xyz]).
+# x: a level's grouped rows, nf: a KnnFP level's [interp, skip, xyz]).  The
+# backward writes each product's d output where its weight-gradient kernel
+# reads it: over z, s, v, u and t (a GroupNorm's input, or the scores, read
+# by nothing else), and into dout (d of an MLP's output), dvt / dvc (the
+# per-block sums of d of the injection vectors) and df (d of the
+# attention's feature product).
 _MLP = (("n_layers",), ("inject_t",), ("inject_c",), ("res",),  # res 1: +x, 2: +res_conv(x)
         ("conv", _DENSE, MAX_LAYERS), ("norm", _NORM, MAX_LAYERS),
         ("fc_t", _DENSE), ("fc_c", _DENSE), ("res_conv", _DENSE),
         ("z", None, MAX_LAYERS), ("a", None, MAX_LAYERS), ("h", None, MAX_LAYERS),
-        ("st", None, MAX_LAYERS), ("out",),
+        ("st", None, MAX_LAYERS), ("out",), ("dout",), ("dvt",), ("dvc",),
         ("vt",), ("vc",))                 # K1: offsets of its t and class vectors
 _ATT = (("feat_conv", _DENSE), ("grouped_conv", _DENSE), ("w_norm_1", _NORM),
         ("w_conv_1", _DENSE), ("w_norm_2", _NORM), ("w_conv_2", _DENSE),
         ("out_conv", _DENSE), ("out_norm", _NORM),
         ("t",), ("tn",), ("st1",), ("u",), ("st2",), ("un",), ("s",), ("v",),
-        ("st3",), ("vn",), ("w",))
+        ("st3",), ("vn",), ("w",), ("df",))
 _SA = (("k",), ("mlp", _MLP), ("att", _ATT), ("x",), ("ld",))   # ld: K1's row stride
 _FP = (("k",), ("mlp1", _MLP), ("att", _ATT), ("mlp2", _MLP), ("x",), ("nf",), ("ld",))
-# one weight product of K1, in the order it runs them (`_k1_plan`)
+# one weight product of K1 (K2), in the order it runs them (`_k1_plan`,
+# `_k2_plan`)
 _STREAM = (("w",), ("cin",), ("cout",), ("bk",), ("passes",), ("mt",))
 TABLE = (("n",), ("din",), ("out_dim",), ("t4",), ("cls",), ("inc_abs",),
          ("inc_cen",), ("n_sa",), ("n_fp",), ("cloud_floats",),
@@ -253,14 +283,23 @@ TABLE = (("n",), ("din",), ("out_dim",), ("t4",), ("cls",), ("inc_abs",),
          ("dist",), ("knn",), ("kmax",), ("xyz",), ("part",), ("gn",), ("red",), ("vecs",),
          ("n_stream",), ("stream", _STREAM, MAX_STREAM),
          ("sa", _SA, MAX_LEVELS), ("fp", _FP, MAX_LEVELS),
-         ("head1", _DENSE), ("head_norm", _NORM), ("head_out", _DENSE),
-         # K2: its per-cloud floats, the level features before the KnnFP
-         # tower, the head's tape, and its gradient buffers
-         ("bwd_floats",), ("flvl", None, MAX_LEVELS + 1),
-         ("hin",), ("hz",), ("hst",), ("ha",),
-         ("gbuf", None, N_GRAD_BUFFERS), ("gf", None, MAX_LEVELS + 1),
-         ("gg", None, MAX_LEVELS + 1), ("gdist",), ("gxyz",), ("gvec",),
-         ("gstat",), ("tvec",))
+         ("head1", _DENSE), ("head_norm", _NORM), ("head_out", _DENSE))
+# K2's own table (`Spec2`): its plan (`_k2_plan`: blocks per cloud and per
+# SM, points per block, shared memory in floats from the block's start: the
+# barriers and plan, both tables, the weight ring, the small tables), its
+# per-cloud floats, the level features before the KnnFP tower, the head's
+# tape, its gradient buffers and accumulators (`_tape_layout`), and its list
+# of products: the recompute's, then the backward's (d input = d output x
+# W^T, over the transposed weights at offset `size` + w)
+TABLE2 = (("cluster",), ("occupancy",), ("pts",), ("smem_bytes",),
+          ("bars",), ("table",), ("table2",), ("ring",), ("stage",),
+          ("xyz",), ("dist",), ("knn",), ("kmax",), ("picks",), ("part",), ("gn",),
+          ("red",), ("vecs",), ("cs",),
+          ("bwd_floats",), ("flvl", None, MAX_LEVELS + 1),
+          ("hin",), ("hz",), ("hst",), ("ha",),
+          ("gbuf", None, N_GRAD_BUFFERS), ("gld",), ("gf", None, MAX_LEVELS + 1),
+          ("gdist",), ("gxyz",), ("gvec",),
+          ("n_stream",), ("stream", _STREAM, K2_MAX_STREAM))
 
 
 def table_ints(schema=TABLE) -> int:
@@ -327,7 +366,15 @@ class PackedNet:
     from (`pack_flat` packs them again, differentiably, from the live
     parameters).  `scratch` / `bwd_scratch` are K1's and K2's per-cloud
     memory, grown to the largest batch seen and reused (launches on one
-    stream never overlap)."""
+    stream never overlap).
+
+    K2's own: `table2` (`TABLE2`, on the card) and `layout2` read back;
+    `jobs` / `tiles`, the products of its weight-gradient kernel and its
+    blocks (an output tile and a depth part each; `_k2_jobs`), whose parts'
+    sums take `splits` copies of the weights' size; `gather`, the index
+    that makes [weights, every dense kernel transposed] from the weights.
+    `bwd_buffers` puts these on the card once, beside the buffer that
+    gather fills and the splits' partial sums, both sized once."""
 
     flat: torch.Tensor
     table: torch.Tensor
@@ -336,6 +383,14 @@ class PackedNet:
     scratch: Optional[torch.Tensor] = None
     bwd_scratch: Optional[torch.Tensor] = None
     table_host: Optional[torch.Tensor] = None
+    table2: Optional[torch.Tensor] = None
+    layout2: Optional[dict] = None
+    jobs: Optional[torch.Tensor] = None
+    tiles: Optional[torch.Tensor] = None
+    splits: int = 1
+    gather: Optional[torch.Tensor] = None
+    wcat: Optional[torch.Tensor] = None
+    wpart: Optional[torch.Tensor] = None
 
     def scratch_for(self, batch: int) -> torch.Tensor:
         floats = batch * self.layout["cloud_floats"]
@@ -345,11 +400,24 @@ class PackedNet:
         return self.scratch
 
     def bwd_scratch_for(self, batch: int) -> torch.Tensor:
-        floats = batch * self.layout["bwd_floats"]
+        floats = batch * self.layout2["bwd_floats"]
         if self.bwd_scratch is None or self.bwd_scratch.numel() < floats:
             self.bwd_scratch = torch.empty(floats, dtype=torch.float32,
                                            device=self.flat.device)
         return self.bwd_scratch
+
+    def bwd_buffers(self) -> None:
+        """K2's tables, the transposing gather and its output, and the weight
+        gradient's partial sums (zeroed once: the kernel writes every entry
+        of a weight or bias, never the padding) on the weights' card."""
+        dev = self.flat.device
+        if self.wpart is None:
+            self.table2 = self.table2.to(dev)
+            self.jobs, self.tiles = self.jobs.to(dev), self.tiles.to(dev)
+            self.gather = self.gather.to(dev)
+            self.wcat = torch.empty(2 * self.flat.numel(), dtype=torch.float32, device=dev)
+            self.wpart = torch.zeros((self.splits, self.flat.numel()), dtype=torch.float32,
+                                     device=dev)
 
     def live_flat(self) -> torch.Tensor:
         """The buffer packed from the parameters as they are now, with
@@ -424,9 +492,9 @@ class _Packer:
 
 
 def _records(rec, keys: set):
-    """Every sub-record of a table record whose fields are `keys`."""
+    """Every sub-record of a table record with the fields `keys`."""
     if isinstance(rec, dict):
-        if set(rec) == keys:
+        if keys <= rec.keys():
             yield rec
             return
         for v in rec.values():
@@ -436,16 +504,23 @@ def _records(rec, keys: set):
             yield from _records(v, keys)
 
 
-def _tape_layout(rec: dict, n: int, cmax: int) -> None:
+def _tape_layout(rec: dict, rec2: dict, cmax: int) -> None:
     """K2's per-cloud scratch: give every tape and gradient field of `rec`
-    its offset (each tensor 32-float aligned) and set `bwd_floats`."""
+    (the layer table) and `rec2` (K2's) its offset, each tensor 32-float
+    aligned, and set `bwd_floats`.  Rows are a cloud's, in order: grouped
+    row i k + s of point i, so block r's rows (its points' and their slots')
+    are one run; `cl` rows of per-block sums."""
     pos = 0
+    n, cl = rec["n"], rec2["cluster"]
 
     def take(floats: int) -> int:
         nonlocal pos
         off = pos
         pos += -(-floats // 32) * 32
         return off
+
+    def norm(nd):
+        nd["p"] = take(cl * 2 * nd["c"])
 
     def mlp(m, rows):
         for i in range(m["n_layers"]):
@@ -454,7 +529,12 @@ def _tape_layout(rec: dict, n: int, cmax: int) -> None:
             m.setdefault("a", []).append(take(rows * width))
             m.setdefault("h", []).append(take(rows * width))
             m.setdefault("st", []).append(take(STATS))
-        m["out"] = take(rows * m["conv"][m["n_layers"] - 1]["cout"])
+            norm(m["norm"][i])
+        width = m["conv"][m["n_layers"] - 1]["cout"]
+        m["out"] = take(rows * width)
+        m["dout"] = take(rows * width)
+        m["dvt"] = take(cl * m["fc_t"]["cout"]) if m["inject_t"] else 0
+        m["dvc"] = take(cl * m["fc_c"]["cout"]) if m["inject_c"] else 0
 
     def att(a, rows):
         ct = a["w_conv_1"]["cin"]
@@ -462,8 +542,11 @@ def _tape_layout(rec: dict, n: int, cmax: int) -> None:
         for key, floats in (("t", rows * ct), ("tn", rows * ct), ("st1", STATS),
                             ("u", rows * inter), ("st2", STATS), ("un", rows * inter),
                             ("s", rows * co), ("v", rows * co), ("st3", STATS),
-                            ("vn", rows * co), ("w", rows * co)):
+                            ("vn", rows * co), ("w", rows * co),
+                            ("df", n * a["feat_conv"]["cout"])):
             a[key] = take(floats)
+        for key in ("w_norm_1", "w_norm_2", "out_norm"):
+            norm(a[key])
 
     rmax = n
     for s in rec["sa"]:
@@ -480,20 +563,214 @@ def _tape_layout(rec: dict, n: int, cmax: int) -> None:
         mlp(f["mlp2"], n)
         f["x"] = take(rows * f["mlp1"]["conv"][0]["cin"])
         f["nf"] = take(n * f["mlp2"]["conv"][0]["cin"])
-    rec["flvl"] = [take(n * cmax) for _ in range(MAX_LEVELS + 1)]
-    rec["hin"] = take(n * rec["head1"]["cin"])
-    rec["hz"] = take(n * rec["head1"]["cout"])
-    rec["hst"] = take(STATS)
-    rec["ha"] = take(n * rec["head1"]["cout"])
-    rec["gbuf"] = [take(rmax * cmax) for _ in range(N_GRAD_BUFFERS)]
-    rec["gf"] = [take(n * cmax) for _ in range(MAX_LEVELS + 1)]
-    rec["gg"] = [take(n * cmax) for _ in range(MAX_LEVELS + 1)]
-    rec["gdist"] = take(n * n)
-    rec["gxyz"] = take(n * 3)
-    rec["gvec"] = take(rec["t4"] + rec["cls"])
-    rec["gstat"] = take(2 * MAX_GROUPS)
-    rec["tvec"] = take(MAX_VEC)
-    rec["bwd_floats"] = pos
+    rec2["flvl"] = [take(n * cmax) for _ in range(MAX_LEVELS + 1)]
+    rec2["hin"] = take(n * rec["head1"]["cin"])
+    rec2["hz"] = take(n * rec["head1"]["cout"])
+    rec2["hst"] = take(STATS)
+    rec2["ha"] = take(n * rec["head1"]["cout"])
+    norm(rec["head_norm"])
+    # row buffers: a block's rows start at its first row x gld, whatever the
+    # width it keeps there
+    rec2["gbuf"] = [take(rmax * cmax) for _ in range(N_GRAD_BUFFERS)]
+    rec2["gld"] = cmax
+    rec2["gf"] = [take(n * cmax) for _ in range(MAX_LEVELS + 1)]
+    rec2["gdist"] = take(n * n)
+    rec2["gxyz"] = take(n * 3)
+    rec2["gvec"] = take(rec["t4"] + rec["cls"])
+    rec2["bwd_floats"] = pos
+
+
+def _k2_stream(rec: dict, P: int, size: int) -> list:
+    """K2's products in the order it runs them: (weight offset, depth, width,
+    rows per block).  The recompute's are K1's but the head's last (its
+    output is not needed); the backward's, d input = d output W^T, read the
+    transposed weights at `size` + the weight's offset."""
+    out: list = []
+
+    def fwd(d, rows):
+        out.append((d["w"], d["cin"], d["cout"], rows))
+
+    def bwd(d, rows):
+        out.append((size + d["w"], d["cout"], d["cin"], rows))
+
+    def mlp_f(m, rows):
+        for i in range(m["n_layers"]):
+            fwd(m["conv"][i], rows)
+        if m["res"] == 2:
+            fwd(m["res_conv"], rows)
+
+    def mlp_b(m, rows):
+        if m["res"] == 2:
+            bwd(m["res_conv"], rows)
+        for i in reversed(range(m["n_layers"])):
+            bwd(m["conv"][i], rows)
+
+    def att_f(a, k):
+        for key, rows in (("grouped_conv", P * k), ("feat_conv", P), ("w_conv_1", P * k),
+                          ("w_conv_2", P * k), ("out_conv", P * k)):
+            fwd(a[key], rows)
+
+    def att_b(a, k):
+        for key, rows in (("out_conv", P * k), ("w_conv_2", P * k), ("w_conv_1", P * k),
+                          ("feat_conv", P), ("grouped_conv", P * k)):
+            bwd(a[key], rows)
+
+    for s in rec["sa"]:
+        mlp_f(s["mlp"], P * s["k"])
+        att_f(s["att"], s["k"])
+    for f in reversed(rec["fp"]):
+        mlp_f(f["mlp1"], P * f["k"])
+        att_f(f["att"], f["k"])
+        mlp_f(f["mlp2"], P)
+    fwd(rec["head1"], P)
+    bwd(rec["head_out"], P)
+    bwd(rec["head1"], P)
+    for f in rec["fp"]:
+        mlp_b(f["mlp2"], P)
+        att_b(f["att"], f["k"])
+        mlp_b(f["mlp1"], P * f["k"])
+    for s in reversed(rec["sa"]):
+        att_b(s["att"], s["k"])
+        mlp_b(s["mlp"], P * s["k"])
+    return out
+
+
+def _stream_entries(stream, stage: int) -> list:
+    """A list of products as `_STREAM` records for a ring of `stage`-float
+    stages: 32 rows a pass (mt 2) up to 512 columns, else 16; depth slices
+    of the most rows of 8 that fit a stage."""
+    entries = []
+    for w, cin, cout, rows in stream:
+        mt = 2 if cout <= 512 and rows > 16 else 1
+        bk = min(8 * ((stage - 8) // (8 * cout)), -(-cin // 8) * 8)
+        entries.append(dict(w=w, cin=cin, cout=cout, bk=bk,
+                            passes=max(1, -(-rows // (16 * mt))), mt=mt))
+    return entries
+
+
+def _k2_plan(rec: dict, size: int) -> dict:
+    """K2's plan (`TABLE2`): (4, 2) of `K2_PLACEMENTS` when its products fit
+    the registers and its shared memory fits, else (8, 1); in it, ring
+    stages as large as fit (as K1's).  Shared memory: the ring's barriers,
+    K2's plan and its pointers (128 floats), both tables, the ring, then
+    the small tables."""
+    n = rec["n"]
+    kmax = max([1] + [s["k"] for s in rec["sa"]] + [f["k"] for f in rec["fp"]])
+    red = 512 * max(1, -(-max(nd["c"] for nd in _records(rec, {"s", "b", "c", "g"})) // 256))
+    for cl, occ in K2_PLACEMENTS:
+        P = -(-n // cl)
+        stream = _k2_stream(rec, P, size)
+        if len(stream) > K2_MAX_STREAM:
+            raise ValueError(f"K2 runs at most {K2_MAX_STREAM} weight products, got "
+                             f"{len(stream)}")
+        widest = max(cout for _, _, cout, _ in stream)
+        if occ == 2 and widest > K2_WIDE_2:
+            continue
+        least = -(-(8 * widest + 8) // 32) * 32
+        sizes = {-(-(bk * cout + 8) // 32) * 32 for _, _, cout, _ in stream
+                 for bk in (8, 16, 32, 64, 128)} | {8192}
+        sizes = sorted((z for z in sizes if least <= z <= 8224), reverse=True) or [least]
+        for stage in sizes:
+            pos = 128
+            fields = dict(cluster=cl, occupancy=occ, pts=P, kmax=kmax, bars=0, stage=stage)
+            for key, floats in (("table", table_ints()), ("table2", table_ints(TABLE2)),
+                                ("ring", K1_STAGES * stage), ("xyz", n * 3), ("dist", n * n),
+                                ("knn", n * kmax), ("picks", P * (n + 1)),
+                                ("part", 4 * MAX_GROUPS), ("gn", 5 * MAX_GROUPS),
+                                ("red", red), ("vecs", MAX_VEC), ("cs", 2 * MAX_VEC)):
+                fields[key] = pos
+                pos += -(-floats // 32) * 32
+            fields["smem_bytes"] = 4 * pos
+            if fields["smem_bytes"] <= (K1_SMEM_BYTES_2 if occ == 2 else K1_SMEM_BYTES):
+                fields["stream"] = _stream_entries(stream, stage)
+                fields["n_stream"] = len(stream)
+                return fields
+    raise ValueError("K2's plan fits no placement")
+
+
+def _k2_jobs(rec: dict, rec2: dict):
+    """K2's weight-gradient kernel: one job per weight and per GroupNorm
+    affine, d W = sum over the batch's clouds and their rows of X^T dY (and
+    d bias = sum dY), as int rows [d W's offset (-1: none), d bias's offset
+    (-1: none), in (0: a column sum only), out, rows per cloud, X's source,
+    offset, row stride, dY's source, offset, row stride, 0];
+    sources TAPE (the cloud's tape), FROM_T4 / FROM_CLS (the cloud's
+    embedding, one row read for every row: stride 0) and FROM_G (the
+    cotangent).  Then its blocks [job, first in, first out, depth part,
+    parts, 0, 0, 0], one per output tile and depth part, and the most parts
+    a job has."""
+    n, cl = rec["n"], rec2["cluster"]
+    jobs: list = []
+
+    def prod(d, rows, x, y):
+        jobs.append([d["w"], d["b"], d["cin"], d["cout"], rows, *x, *y, 0])
+
+    def norm(nd):
+        c, cn = nd["c"], nd["c"] - nd["c"] % nd["g"]
+        for dst, col in ((nd["s"], 0), (nd["b"], c)):
+            jobs.append([-1, dst, 0, cn, cl, TAPE, 0, 0, TAPE, nd["p"] + col, 2 * c, 0])
+
+    def mlp(m, xoff, rows):
+        for i in range(m["n_layers"]):
+            cv = m["conv"][i]
+            if i == 0:
+                src = xoff
+            else:
+                inj = (i - 1 == 0 and m["inject_t"]) or (i - 1 == 1 and m["inject_c"])
+                src = m["h"][i - 1] if inj else m["a"][i - 1]
+            prod(cv, rows, (TAPE, src, cv["cin"]), (TAPE, m["z"][i], cv["cout"]))
+            norm(m["norm"][i])
+        if m["inject_t"]:
+            prod(m["fc_t"], cl, (FROM_T4, 0, 0), (TAPE, m["dvt"], m["fc_t"]["cout"]))
+        if m["inject_c"]:
+            prod(m["fc_c"], cl, (FROM_CLS, 0, 0), (TAPE, m["dvc"], m["fc_c"]["cout"]))
+        if m["res"] == 2:
+            cout = m["conv"][m["n_layers"] - 1]["cout"]
+            prod(m["res_conv"], rows, (TAPE, xoff, m["res_conv"]["cin"]),
+                 (TAPE, m["dout"], cout))
+
+    def att(a, feat, grouped, value, k):
+        ct, c1 = a["w_conv_1"]["cin"], a["feat_conv"]["cout"]
+        inter, co = a["w_conv_1"]["cout"], a["w_conv_2"]["cout"]
+        prod(a["feat_conv"], n, (TAPE, feat, a["feat_conv"]["cin"]), (TAPE, a["df"], c1))
+        prod(a["grouped_conv"], n * k, (TAPE, grouped, a["grouped_conv"]["cin"]),
+             (TAPE, a["t"] + c1, ct))
+        prod(a["w_conv_1"], n * k, (TAPE, a["tn"], ct), (TAPE, a["u"], inter))
+        prod(a["w_conv_2"], n * k, (TAPE, a["un"], inter), (TAPE, a["s"], co))
+        prod(a["out_conv"], n * k, (TAPE, value, a["out_conv"]["cin"]), (TAPE, a["v"], co))
+        for key in ("w_norm_1", "w_norm_2", "out_norm"):
+            norm(a[key])
+
+    for l, s in enumerate(rec["sa"]):
+        mlp(s["mlp"], s["x"], n * s["k"])
+        att(s["att"], rec2["flvl"][l], s["x"], s["mlp"]["out"], s["k"])
+    for l, f in enumerate(rec["fp"]):
+        mlp(f["mlp1"], f["x"], n * f["k"])
+        att(f["att"], rec2["flvl"][l], f["x"], f["mlp1"]["out"], f["k"])
+        mlp(f["mlp2"], f["nf"], n)
+    hc = rec["head1"]["cout"]
+    prod(rec["head1"], n, (TAPE, rec2["hin"], rec["head1"]["cin"]), (TAPE, rec2["hz"], hc))
+    norm(rec["head_norm"])
+    prod(rec["head_out"], n, (TAPE, rec2["ha"], hc), (FROM_G, 0, rec["out_dim"]))
+    blocks = []
+    for j, job in enumerate(jobs):
+        parts = max(1, min(DW_MAX_SPLITS, job[4] // DW_PART_ROWS))
+        for m0 in range(0, max(job[2], 1), DW_TILE):
+            for n0 in range(0, job[3], DW_TILE):
+                blocks += [[j, m0, n0, part, parts, 0, 0, 0] for part in range(parts)]
+    return jobs, blocks, max(b[4] for b in blocks)
+
+
+def _transpose_gather(rec: dict, size: int) -> torch.Tensor:
+    """Indices into the weights of [the weights, the weights with every
+    dense kernel (cin, cout) stored transposed, (cout, cin), at the same
+    offset]: K2's d input products read the second half."""
+    idx = torch.arange(size, dtype=torch.int64)
+    for d in _records(rec, {"w", "b", "cin", "cout"}):
+        cin, cout = d["cin"], d["cout"]
+        src = torch.arange(cin * cout, dtype=torch.int64).view(cin, cout)
+        idx[d["w"]:d["w"] + cin * cout] = d["w"] + src.t().reshape(-1)
+    return torch.cat([torch.arange(size, dtype=torch.int64), idx]).to(torch.int32)
 
 
 def _ld(width: int) -> int:
@@ -665,16 +942,23 @@ def pack_weights(net: ConditionalPointNet2, spec: Mapping) -> PackedNet:
     if max(nd["g"] for nd in _records(rec, {"s", "b", "c", "g"})) > MAX_GROUPS:
         raise ValueError(f"the fused kernels take at most {MAX_GROUPS} GroupNorm groups")
     _k1_plan(rec)
-    _tape_layout(rec, n, cmax)
+    rec2 = _k2_plan(rec, p.size)
+    _tape_layout(rec, rec2, cmax)
+    jobs, tiles, splits = _k2_jobs(rec, rec2)
 
     ints = encode_table(TABLE, rec)
+    ints2 = encode_table(TABLE2, rec2)
     dev = net.head_conv1.weight.device
     with torch.no_grad():
         flat = pack_flat(p.sources).to(dev).contiguous()
     table_host = torch.tensor(ints, dtype=torch.int32)
     layout, _ = decode_table(TABLE, ints)
+    layout2, _ = decode_table(TABLE2, ints2)
     return PackedNet(flat=flat, table=table_host.to(dev), layout=layout, sources=p.sources,
-                     table_host=table_host)
+                     table_host=table_host, table2=torch.tensor(ints2, dtype=torch.int32),
+                     layout2=layout2, jobs=torch.tensor(jobs, dtype=torch.int32),
+                     tiles=torch.tensor(tiles, dtype=torch.int32), splits=splits,
+                     gather=_transpose_gather(rec, p.size))
 
 
 # ---------------------------------------------------------------------------
@@ -844,6 +1128,9 @@ def _load_checked(packed: PackedNet):
     if lib.slide_fused_table_ints() != packed.table.numel():
         raise RuntimeError(f"layer table has {packed.table.numel()} ints, the "
                            f"kernel's Spec {lib.slide_fused_table_ints()}")
+    if lib.slide_fused_table2_ints() != packed.table2.numel():
+        raise RuntimeError(f"K2's table has {packed.table2.numel()} ints, the "
+                           f"kernel's Spec2 {lib.slide_fused_table2_ints()}")
     return lib
 
 
@@ -890,8 +1177,12 @@ def fused_backward_cuda(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
     at (pc, t4, cls, flat) applied to the cotangent g (B, N, out_dim).
     Returns (d pc, d t4, d cls, d flat), d flat summed over the batch in a
     fixed order (two launches on the same inputs give equal results).
-    Takes contiguous fp32 CUDA tensors; raises on anything else."""
-    lay = packed.layout
+    Takes contiguous fp32 CUDA tensors; raises on anything else.
+
+    Before the launch one gather (`PackedNet.gather`) lays out the weights
+    and their transposes for K2's d input products; its buffer and every
+    other scratch K2 needs are sized once on `packed`."""
+    lay, lay2 = packed.layout, packed.layout2
     flat = packed.flat if flat is None else flat
     b = pc.shape[0]
     if b == 0:
@@ -901,20 +1192,51 @@ def fused_backward_cuda(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
                 {"pc": pc, "t4": t4, "cls": cls, "g": g, "weights": flat}, shapes)
     dev = pc.device
     lib = _load_checked(packed)
+    packed.bwd_buffers()
     size = flat.numel()
-    partial = torch.zeros((b, size), dtype=torch.float32, device=dev)
+    torch.index_select(flat.detach(), 0, packed.gather, out=packed.wcat)
     dpc, dt4, dcls = torch.empty_like(pc), torch.empty_like(t4), torch.empty_like(cls)
     dflat = torch.empty_like(flat)
     scratch = packed.bwd_scratch_for(b)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.slide_fused_denoiser_bwd(
-        pc.data_ptr(), t4.data_ptr(), cls.data_ptr(), g.data_ptr(), flat.data_ptr(),
-        packed.table.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-        dpc.data_ptr(), dt4.data_ptr(), dcls.data_ptr(), dflat.data_ptr(), b, size,
-        dev.index, stream)
+        pc.data_ptr(), t4.data_ptr(), cls.data_ptr(), g.data_ptr(), packed.wcat.data_ptr(),
+        packed.table.data_ptr(), packed.table2.data_ptr(), scratch.data_ptr(),
+        packed.jobs.data_ptr(), packed.tiles.data_ptr(), packed.tiles.shape[0], packed.splits,
+        packed.wpart.data_ptr(), dpc.data_ptr(), dt4.data_ptr(), dcls.data_ptr(),
+        dflat.data_ptr(), b, size, lay2["cluster"], lay2["occupancy"], lay2["smem_bytes"],
+        lay2["bwd_floats"], lay["t4"], lay["cls"], lay["n"] * lay["out_dim"], dev.index, stream)
     _build.check(lib, code, "fused_denoiser_bwd")
     _build.launch_counts["fused_denoiser_bwd"] += 1
     return dpc, dt4, dcls, dflat
+
+
+def weight_grads_plain(packed: PackedNet, tape: torch.Tensor, t4: torch.Tensor,
+                       cls: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain version of K2's weight-gradient launch: d flat from the
+    chain's tape (B x bwd_floats) and the inputs, job by job (`_k2_jobs`):
+    d W = sum over clouds and rows of X^T dY, d bias = sum of dY."""
+    b = t4.shape[0]
+    floats = packed.layout2["bwd_floats"]
+    tape = tape.reshape(-1)[:b * floats]
+    out = torch.zeros(packed.flat.numel(), dtype=torch.float32, device=tape.device)
+    flat_rows = {FROM_T4: t4.reshape(b, -1), FROM_CLS: cls.reshape(b, -1),
+                 FROM_G: g.reshape(b, -1)}
+
+    def rows(kind, off, ld, r, width):
+        if kind == TAPE:
+            return tape.as_strided((b, r, width), (floats, ld, 1), off)
+        src = flat_rows[kind]
+        return src.as_strided((b, r, width), (src.shape[1], ld, 1), off)
+
+    for dst_w, dst_b, cin, cout, r, xk, xoff, xld, yk, yoff, yld, _ in packed.jobs.tolist():
+        y = rows(yk, yoff, yld, r, cout)
+        if cin > 0:
+            x = rows(xk, xoff, xld, r, cin)
+            out[dst_w:dst_w + cin * cout] = torch.einsum("bri,brc->ic", x, y).reshape(-1)
+        if dst_b >= 0:
+            out[dst_b:dst_b + cout] = y.sum(dim=(0, 1))
+    return out
 
 
 def fused_backward_plain(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
@@ -942,13 +1264,15 @@ def fused_backward_reference(packed: PackedNet, pc: torch.Tensor, t4: torch.Tens
     gradient in one fp32 backward and not in another, since their sums run
     in other orders; either decision is right, and float64 makes one of
     them.  The units whose float64 input lies within `tie` * max(1, max
-    |that relu's input|) of 0 are tried, closest to 0 first.  A unit's
-    other decision is kept when the change it makes to the gradients
-    explains the difference left between `got` and the reference (a
-    least-squares coefficient between 0.5 and 1.5) and moves some element
-    by more than a tenth of its bound, `tol` * max(1, max |reference|) per
-    gradient.  The search stops as soon as every element of `got` lies
-    within its bound, or after `max_tries` units.
+    |that relu's input|) of 0 are tried, closest to 0 first; the units of
+    one relu that hold one value (copies: the attention's first relu takes
+    its point-wise product repeated over the k slots) are one decision and
+    are tried together.  A unit's other decision is kept when the change
+    it makes to the gradients explains the difference left between `got`
+    and the reference (a least-squares coefficient between 0.5 and 1.5) and
+    moves some element by more than a tenth of its bound, `tol` * max(1,
+    max |reference|) per gradient.  The search stops as soon as every
+    element of `got` lies within its bound, or after `max_tries` decisions.
 
     Returns (the reference as float64 (d pc, d t4, d cls, d flat), the
     decisions changed as [(relu call, flat index, float64 input)])."""
@@ -987,18 +1311,21 @@ def fused_backward_reference(packed: PackedNet, pc: torch.Tensor, t4: torch.Tens
     for i, x in enumerate(seen):
         x = x.reshape(-1)
         near = (x.abs() <= tie * max(1.0, float(x.abs().max()))).nonzero().reshape(-1)
-        ties += [(abs(float(x[j])), i, int(j), float(x[j])) for j in near.tolist()]
+        units = {}
+        for j in near.tolist():
+            units.setdefault(float(x[j]), []).append(j)
+        ties += [(abs(v), i, js, v) for v, js in units.items()]
     flips, kept = {}, []
-    for _, i, j, x in sorted(ties)[:max_tries]:
+    for _, i, js, x in sorted(ties)[:max_tries]:
         if bool((diff.abs() <= bound).all()):
             break
-        trial = {**flips, i: flips.get(i, []) + [j]}
+        trial = {**flips, i: flips.get(i, []) + js}
         alt, _ = backward(trial)
         delta = alt - ref
         coef = float(diff @ delta) / max(float(delta @ delta), 1e-300)
         if 0.5 < coef < 1.5 and bool((delta.abs() > 0.1 * bound).any()):
             flips, ref, diff = trial, alt, diff - delta
-            kept.append((i, j, x))
+            kept += [(i, j, x) for j in js]
     return tuple(r.view_as(t) for r, t in zip(torch.split(ref, sizes), inputs)), kept
 
 

@@ -11,7 +11,7 @@ Semantics (those of `slide_tpu/ops/fps.py::_fps_scan`):
 
 A tensor on the CPU goes to `fps_plain`; a CUDA tensor goes to the kernel
 (bounded on the card by its serial chain of K rounds, each one block-wide
-argmax, not by bytes or flops) or raises.  The kernel and the plain version
+argmax behind one barrier, not by bytes or flops) or raises.  The kernel and the plain version
 round each distance the same way, ((dx*dx + dy*dy) + dz*dz) with no fused
 multiply-add, so their indices are equal.
 """
@@ -25,9 +25,20 @@ import torch
 from slide_tpu_torch import _build
 
 # one block holds the cloud (D x N floats) in shared memory and at most
-# 16 points per thread in registers (csrc/fps.cu)
+# 32 points per thread in registers (csrc/fps.cu)
 _MAX_SMEM_FLOATS = (227 * 1024 - 1024) // 4
 _MAX_POINTS = 16 * 1024
+
+
+def threads_for(n: int) -> int:
+    """The kernel's threads per block for N = `n`: about two points a thread,
+    from 4 to 16 warps (at most 32 points a thread up to `_MAX_POINTS`).
+    Chosen on an H100 over the decode's shapes and training's 2049 points,
+    timing each block size from 64 to 1024 (PERF.md §6): at N >= 512,
+    where a decode's time goes, this is the fastest size or within 1% of it;
+    1024 threads lose 10-40% to the round's barrier, 128 threads at N = 4096
+    lose 11x to the scan (32 points a thread)."""
+    return min(512, max(128, -(-n // 64) * 32))
 
 
 def _start_tensor(start_idx, b: int, n: int, device) -> torch.Tensor:
@@ -69,8 +80,9 @@ def fps_plain(xyz: torch.Tensor, k: int, start: torch.Tensor,
 
 def fps_cuda(xyz: torch.Tensor, k: int, start: torch.Tensor,
              num_forced: int = 0) -> torch.Tensor:
-    """Launch the CUDA kernel.  xyz (B, N, D) f32 contiguous on the card,
-    start (B,) int32 on the same card -> (B, k) int32."""
+    """Launch the CUDA kernel, `threads_for(N)` threads a block.  xyz (B, N,
+    D) f32 contiguous on the card, start (B,) int32 on the same card -> (B,
+    k) int32."""
     if xyz.device.type != "cuda" or start.device != xyz.device:
         raise ValueError("fps_cuda takes CUDA tensors on one device")
     if xyz.dtype != torch.float32 or start.dtype != torch.int32:
@@ -88,7 +100,7 @@ def fps_cuda(xyz: torch.Tensor, k: int, start: torch.Tensor,
     lib = _build.load_kernels()
     stream = torch.cuda.current_stream(xyz.device).cuda_stream
     code = lib.slide_fps(xyz.data_ptr(), start.data_ptr(), out.data_ptr(),
-                         b, n, d, k, num_forced, xyz.device.index, stream)
+                         b, n, d, k, num_forced, threads_for(n), xyz.device.index, stream)
     _build.check(lib, code, "fps")
     _build.launch_counts["fps"] += 1
     return out

@@ -43,6 +43,20 @@ def test_fps_kernel_all_channels_and_ties(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,k,b", [(512, 256, 16), (256, 128, 16), (128, 64, 16), (64, 16, 16),
+                                   (2048, 1024, 16), (1024, 256, 16), (256, 64, 16),
+                                   (4096, 2048, 16), (2049, 16, 32)])
+def test_fps_kernel_ties_at_the_main_path_shapes(cuda, n, k, b):
+    # the decode's nine shapes and training's: every point has two copies
+    # (and a grid of values), so that ties decide picks; random starts
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    half = torch.randint(-3, 4, (b, (n + 1) // 2, 3), generator=gen, device=cuda).float()
+    xyz = torch.cat([half, half], dim=1)[:, :n].contiguous()
+    start = torch.randint(0, n, (b,), generator=gen, device=cuda, dtype=torch.int32)
+    assert torch.equal(fps.fps_cuda(xyz, k, start), fps.fps_plain(xyz, k, start))
+
+
+@pytest.mark.cuda
 def test_fps_wrapper_counts_launches_and_checks_inputs(cuda):
     xyz = torch.randn((2, 128, 3), device=cuda)
     before = _build.launch_counts["fps"]
@@ -202,6 +216,13 @@ def test_k1_wrapper_counts_launches_and_checks_inputs(fused_nets):
 K2_TOL = 1e-4
 
 
+def _k2_within(got, want) -> bool:
+    """Every element of each gradient within K2_TOL x max(1, max |want|)."""
+    return all(bool(torch.isfinite(a).all()) and
+               float((a.double() - w).abs().max()) <= K2_TOL * max(1.0, float(w.abs().max()))
+               for a, w in zip(got, want))
+
+
 def _k2_close(fn, pc, t4, cls, g, got, what):
     from slide_tpu_torch.models import fused_denoiser as fd
     want, _ = fd.fused_backward_reference(fn.packed, pc, t4, cls, g, got, tol=K2_TOL)
@@ -228,6 +249,51 @@ def test_k2_matches_plain(fused_nets, name, b, duplicates):
     _k2_close(fn, pc, t4, cls, g, got, f"{name} batch {b}")
     for a, c in zip(got, again):
         assert torch.equal(a, c)               # deterministic: two launches equal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,b", [
+    ("lat32", 32, 3),     # 1024 grouped rows per cloud, widths up to 779
+    ("kp8", 8, 5),        # two points per block
+    ("kp", 16, 300),      # 300 clusters: several waves
+])
+def test_k2_matches_plain_scope(cuda, case, n, b):
+    # K2 at the edges of the fused scope (K1's), random weights, against the
+    # float64 reference at the K2 gate; two launches equal
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    from slide_tpu_torch.models import fused_denoiser as fd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg_fn = latent_ddpm_config if case.startswith("lat") else keypoint_ddpm_config
+    cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+    assert fd.scope_error(cfg, n) is None
+    net, fn = _random_fused_net(cfg, n, seed=n + b)
+    din = 3 + cfg["in_fea_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    pc = torch.randn((b, n, din), generator=gen, device="cuda")
+    g = torch.randn((b, n, din), generator=gen, device="cuda")
+    ts = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    label = torch.randint(0, 13, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts).contiguous(), net.class_emb(label).contiguous()
+    got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+    again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+    # Cloud by cloud (the reference's search for relu ties is per launch, and
+    # 300 clouds hold more ties than it tries): each cloud alone gives the
+    # batch's d pc, d t4, d cls; its four gradients are held to the K2 gate
+    # against the float64 reference with its own ties resolved.  The
+    # batch's d flat is held to the sum of the clouds' references.
+    want_flat = torch.zeros_like(got[3], dtype=torch.float64)
+    for c in range(b):
+        one = [x[c:c + 1].contiguous() for x in (pc, t4, cls, g)]
+        mine = fd.fused_backward_cuda(fn.packed, *one)
+        for a, x in zip(mine[:3], got[:3]):
+            assert torch.equal(a, x[c:c + 1])
+        want, _ = fd.fused_backward_reference(fn.packed, *one, mine, tol=K2_TOL)
+        assert _k2_within(mine, want), f"{case} cloud {c}"
+        want_flat += want[3]
+    assert _k2_within(got[3:], [want_flat]), case
 
 
 @pytest.mark.cuda

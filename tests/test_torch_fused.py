@@ -254,6 +254,79 @@ def test_3xtf32_products_keep_the_k1_gate(name, monkeypatch):
     assert 0 < err <= K1_ATOL, err
 
 
+# K2's product arithmetic, emulated on the CPU: the recompute's products and
+# both of the backward's (d input = dY W^T on the chain, d W = X^T dY in the
+# weight-gradient launch) in 3xTF32; the injections' (one row a cloud) stay
+# fp32 on the chain, their d W is 3xTF32 too.  Does it keep K2's gate?
+
+K2_TOL = 1e-4
+
+
+def _mm_3xtf32(a, b):
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return torch.matmul(al, bh) + torch.matmul(ah, bl) + torch.matmul(ah, bh)
+
+
+class _DenseK2(torch.autograd.Function):
+    """y = x W with K2's arithmetic in both directions (`rows`: x has a row
+    per grouped slot or point, as the chain's products; else one per cloud,
+    as an injection)."""
+
+    @staticmethod
+    def forward(ctx, x, w, rows):
+        ctx.save_for_backward(x, w)
+        ctx.rows = rows
+        return _mm_3xtf32(x, w) if rows else torch.matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        dx = _mm_3xtf32(gy, w.t()) if ctx.rows else torch.matmul(gy, w.t())
+        dw = _mm_3xtf32(x.reshape(-1, x.shape[-1]).t(), gy.reshape(-1, gy.shape[-1]))
+        return dx, dw, None
+
+
+def _dense_k2(x, flat, d):
+    w = flat[d["w"]:d["w"] + d["cin"] * d["cout"]].view(d["cin"], d["cout"])
+    y = _DenseK2.apply(x, w, x.dim() == 3)
+    if d["b"] >= 0:
+        y = y + flat[d["b"]:d["b"] + d["cout"]]
+    return y
+
+
+@pytest.fixture
+def one_thread():
+    # the reference's search reruns a float64 backward of many small
+    # operations: with a thread pool per test process they crowd the cores
+    # when the tests run in several processes at once (tens of times slower)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("name", ["kp", "lat"])
+def test_3xtf32_products_keep_the_k2_gate(name, monkeypatch, one_thread):
+    cfg = (j_kp_config if name == "kp" else j_lat_config)("airplane")["pointnet_config"]
+    net = load_flax_params(ConditionalPointNet2(cfg),
+                           load_inference_params(str(DEFAULT_CKPTS[name]))).eval()
+    packed = tf.pack_weights(net, tf.build_spec(cfg, N))
+    din = 3 + cfg["in_fea_dim"]
+    x, ts, label = _t(*_inputs(2, din, seed=12))
+    g = torch.as_tensor(np.random.default_rng(13).standard_normal((2, N, din)),
+                        dtype=torch.float32)
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts), net.class_emb(label.long())
+    with monkeypatch.context() as m:
+        m.setattr(tf, "_dense", _dense_k2)
+        got = tf.fused_backward_plain(packed, x, t4, cls, g)
+    want, _ = tf.fused_backward_reference(packed, x, t4, cls, g, got, tol=K2_TOL)
+    for what, a, w in zip(("d pc", "d t4", "d cls", "d flat"), got, want):
+        err, bound = float((a.double() - w).abs().max()), K2_TOL * max(1.0, float(w.abs().max()))
+        assert 0 < err <= bound, (what, err, bound)
+
+
 def _chain_noise(key, shape, steps):
     """A JAX chain's draws: the first split for x_T, then one per step."""
     key, k = jax.random.split(key)

@@ -103,8 +103,9 @@ def _assert_trees_close(got, want, rtol, atol):
 
 
 def test_cuda_spec_struct_matches_the_table():
-    # the kernels' `Spec` (csrc/fused_spec.cuh) and TABLE must list the same
-    # int fields in the same order: count them, record by record
+    # the kernels' `Spec` (csrc/fused_spec.cuh) and TABLE, K2's `Spec2` and
+    # TABLE2, must list the same int fields in the same order: count them,
+    # record by record
     import re
     src = open(os.path.join(REPO, "slide_tpu_torch", "csrc", "fused_spec.cuh")).read()
     consts = {m[0]: int(m[1]) for m in re.findall(r"constexpr int (\w+) = (\d+);", src)}
@@ -143,6 +144,7 @@ def test_cuda_spec_struct_matches_the_table():
                 for f, typ, count in structs[struct]]
 
     assert c_names("Spec") == names(tf.TABLE)
+    assert c_names("Spec2") == names(tf.TABLE2)
 
 
 def test_64_keypoints_are_outside_the_fused_scope():
@@ -302,6 +304,75 @@ def test_fused_train_grads_match_jax_and_the_module(name):
     np.testing.assert_allclose(fused_dx.numpy(), xm.grad.numpy(), rtol=5e-3, atol=1e-4)
 
 
+@pytest.mark.parametrize("name", ["kp", "lat_topk"])
+def test_weight_gradient_jobs_equal_autograd(name, monkeypatch):
+    # K2's weight-gradient launch, in its plain version (`weight_grads_plain`):
+    # every d W the batch's sum of X_b^T dY_b (and d b of dY_b), each read from
+    # a tape laid out as the chain lays it out.  The tape is written here from
+    # the plain forward and autograd: each product's input and output
+    # gradient where its job reads them, each GroupNorm's d scale / d bias and
+    # each injection's d vector in the blocks' first row of sums.  Equals
+    # autograd's d flat within the K2 gate (1e-4 x max(1, max |d flat|)).
+    cfg = _narrow(j_kp_config) if name == "kp" else _narrow(j_lat_config, nsample=[6, 16])
+    net = _perturbed_net(cfg, seed=5)
+    packed = tf.pack_weights(net, tf.build_spec(cfg, N))
+    b, din = 3, 3 + cfg["in_fea_dim"]
+    gen = torch.Generator().manual_seed(6)
+    pc, g = torch.randn((b, N, din), generator=gen), torch.randn((b, N, din), generator=gen)
+    with torch.no_grad():
+        t4 = net.t_embedder(torch.tensor([3, 500, 999]))
+        cls = net.class_emb(torch.tensor([0, 4, 7]))
+    dense_calls, norm_calls = [], []
+    plain_dense, plain_norm = tf._dense, tf._group_norm
+
+    def record(calls, fn):
+        def wrapped(x, flat, d):
+            y = fn(x, flat, d)
+            rec = {"d": d, "x": x.detach()}
+            calls.append(rec)
+            y.register_hook(lambda gy: rec.update(dy=gy.detach()))
+            return y
+        return wrapped
+
+    monkeypatch.setattr(tf, "_dense", record(dense_calls, plain_dense))
+    monkeypatch.setattr(tf, "_group_norm", record(norm_calls, plain_norm))
+    flat = packed.flat.clone().requires_grad_(True)
+    tf.fused_forward_plain(None, packed, pc, t4, cls, flat).backward(g)
+    monkeypatch.undo()
+
+    floats, cl = packed.layout2["bwd_floats"], packed.layout2["cluster"]
+    tape = torch.zeros(b * floats)
+
+    def rows(off, ld, r, width):
+        return tape.as_strided((b, r, width), (floats, ld, 1), off)
+
+    jobs = {job[0]: job for job in packed.jobs.tolist() if job[0] >= 0}
+    assert len(jobs) == len(dense_calls)
+    for rec in dense_calls:
+        _, _, cin, cout, r, xk, xoff, xld, yk, yoff, yld, _ = jobs[rec["d"]["w"]]
+        if xk == tf.TAPE:
+            rows(xoff, xld, r, cin).copy_(rec["x"].reshape(b, r, cin))
+        if yk == tf.TAPE:
+            dy = rec["dy"].reshape(b, -1, cout)
+            rows(yoff, yld, r, cout)[:, :dy.shape[1]].copy_(dy)   # an injection: row 0
+    for rec in norm_calls:
+        nd, x, dy = rec["d"], rec["x"], rec["dy"]
+        c, grp = x.shape[-1], nd["g"]
+        cn = c - c % grp
+        xn = x[..., :cn].reshape(b, x.shape[1], grp, -1)
+        mean = xn.mean(dim=(1, 3), keepdim=True)
+        var = torch.clamp((xn * xn).mean(dim=(1, 3), keepdim=True) - mean * mean, min=0)
+        xhat = ((xn - mean) * torch.rsqrt(var + 1e-5)).reshape(b, -1, cn)
+        sums = rows(nd["p"], 2 * c, cl, 2 * c)
+        sums[:, 0, :cn] = (dy[..., :cn] * xhat).sum(dim=1)
+        sums[:, 0, c:c + cn] = dy[..., :cn].sum(dim=1)
+    got = tf.weight_grads_plain(packed, tape, t4, cls, g)
+    want = flat.grad
+    err = float((got - want).abs().max())
+    assert err <= 1e-4 * max(1.0, float(want.abs().max())), err
+    assert float(got.abs().max()) > 0
+
+
 def _relu_inputs(packed, *inputs):
     seen = []
 
@@ -364,6 +435,50 @@ def test_backward_reference_resolves_only_relu_ties(name):
     want, kept = tf.fused_backward_reference(packed, pc, t4, cls, g, wrong, tie=1.0,
                                              max_tries=4)
     assert kept == [] and worst(wrong, want) > 1.0
+
+
+def test_backward_reference_flips_copies_of_a_tie_together():
+    # The attention's first relu takes its point-wise product repeated over
+    # the k slots of each point: when that product lies within rounding of
+    # 0, all k copies are one decision, which the reference takes as one.
+    # Here the first SA attention's product is moved next to 0 at cloud 0,
+    # point 0, channel 0 (through its bias) and a backward that decided
+    # those copies the other way is held to the reference.
+    cfg = _narrow(j_kp_config)
+    net = _perturbed_net(cfg, seed=3)
+    packed = tf.pack_weights(net, tf.build_spec(cfg, N))
+    gen = torch.Generator().manual_seed(4)
+    pc, g = torch.randn((2, N, 3), generator=gen), torch.randn((2, N, 3), generator=gen)
+    with torch.no_grad():
+        t4 = net.t_embedder(torch.tensor([7, 600]))
+        cls = net.class_emb(torch.tensor([1, 9]))
+    sa = packed.layout["sa"][0]
+    k, width = sa["k"], sa["att"]["w_norm_1"]["c"]
+    seen = _relu_inputs(packed, *(t.double() for t in (pc, t4, cls, packed.flat)))
+    call = next(i for i, x in enumerate(seen) if x.numel() == 2 * N * k * width)
+    copies = [slot * width for slot in range(k)]         # cloud 0, point 0, channel 0
+    flat = packed.flat.clone()
+    flat[sa["att"]["feat_conv"]["b"]] -= float(seen[call][0])
+    inputs64 = [t.double() for t in (pc, t4, cls, flat)]
+    x = _relu_inputs(packed, *inputs64)[call]
+    assert len(set(x[copies].tolist())) == 1 and abs(float(x[0])) < 1e-6
+
+    def flipped(x, calls=[0]):
+        mask = x > 0
+        if calls[0] == call:
+            mask = mask.clone().view(-1)
+            mask[copies] = ~mask[copies]
+            mask = mask.view(x.shape)
+        calls[0] += 1
+        return x * mask
+
+    leaves = [t.requires_grad_(True) for t in inputs64]
+    out = tf.fused_forward_plain(None, packed, *leaves, relu=flipped)
+    tied = tuple(d.float() for d in torch.autograd.grad(out, leaves, g.double()))
+    want, kept = tf.fused_backward_reference(packed, pc, t4, cls, g, tied, flat)
+    assert [(i, j) for i, j, _ in kept] == [(call, j) for j in copies]
+    for a, w in zip(tied, want):
+        assert float((a.double() - w).abs().max()) <= 1e-4 * max(1.0, float(w.abs().max()))
 
 
 # ---------------------------------------------------------------------------
