@@ -11,8 +11,9 @@ line each as soon as it ends:
   build    one nvcc per kernel source, all at once, then the link: seconds
            and the ptxas report
   k3       the FPS kernel against its plain PyTorch version at every shape
-           the decode gives it (batch 16, random and zero starts) and at
-           training's (batch 32, 2049 -> 16): indices must be equal; the
+           the decode and the SAP net give it (batch 16, random and zero
+           starts) and at training's (batch 32, 2049 -> 16): indices must be
+           equal; the
            threads per block (`threads_for`), kernel ms, plain ms and the
            bound per shape
   k1_plan  per net and per occupancy (1 and 2 blocks per SM, where a plan
@@ -26,18 +27,34 @@ line each as soon as it ends:
            ms (the unfused forward, the yardstick) and the bound (the weight
            dots as 3xTF32 on the tensor cores, which is what the kernel runs;
            beside it the same dots at the fp32 FFMA rate, fp32_operations_ms)
-  slice    the main path: position DDPM -> feature DDPM -> AE decode at full
-           width, batch 16, T=1000, committed checkpoints, fused denoisers
-           (the default): a warm-up pass, then the counted pass.  Seconds per
-           stage; the cloud must be (16, 2048, 6) and finite; the counted
-           pass must launch the fused denoiser 2000 times and FPS at least 9
+  slice    the main path: position DDPM -> feature DDPM -> AE decode -> SAP
+           refine+upsample -> DPSR 128^3 -> marching tetrahedra and 2048
+           surface samples, at full width, batch 16, T=1000, committed
+           checkpoints, fused denoisers (the default): a warm-up pass, then
+           the counted pass.  Seconds per stage; the cloud must be
+           (16, 2048, 6), the grid (16, 128, 128, 128), the points
+           (16, 2048, 3), all finite, the normals unit, every sample's mesh
+           non-empty; the counted pass must launch the fused denoiser
+           exactly 2000 times and FPS exactly 13 (the decode's 9, the SAP
+           net's SA levels' 4)
+  mesh     the counted pass's meshes (`mesh_to_host`) against the numpy
+           oracle `marching_tetrahedra_numpy` on the same grids copied to the
+           host, four samples (`tests/mesh_compare.py`): the same faces with
+           the same winding, vertices within 1e-4 grid units, normals within
+           1e-5; the card's dense counts
+           (`count_cells_and_faces`) against the extraction's, active cells
+           and faces per sample; then `sap_dpsr` again by parts, timed with
+           CUDA events (the mirror and SAP net, the raster, the FFT solve,
+           grid_interp's shift and scale) and the profiler's busiest kernels
+           of a `sap` call, and DPSR on the card against DPSR on the CPU on
+           the same points and normals (DPSR_ATOL)
   fastdpm  the same stages with FastDPM, S=50 steps per chain: 100 fused
-           launches, the decode's FPS, a finite (16, 2048, 6) cloud
+           launches, the 13 FPS launches, the slice's checks
   net      the kp and latent denoisers on the card (the module and the fused
            net) against the module on the CPU, same weights and input, atol
            1e-4 (fp32, TF32 off)
   unfused  the slice with fused=False (the modules), T cut to 100: a warm-up
-           and a counted pass; no fused launch, at least 9 FPS launches
+           and a counted pass; no fused launch, the slice's other checks
   k2       the fused denoiser's backward against its plain version (autograd
            through the plain forward, run in float64 on the same inputs, relu
            ties resolved as the kernel resolved them: see K2_TOL), kp and
@@ -68,6 +85,7 @@ line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
 hang ends in a stack trace when the watchdog fires.
 """
 
+import contextlib
 import ctypes
 import faulthandler
 import json
@@ -88,8 +106,15 @@ from slide_tpu_torch.data import get_dataloader, write_synthetic_shapenet_psr
 from slide_tpu_torch.diffusion import calc_diffusion_hyperparams, diffusion_training_loss
 from slide_tpu_torch.models import ConditionalPointNet2
 from slide_tpu_torch.pipeline import build_stages, generate, with_fastdpm
+from slide_tpu_torch.sap import (DPSR, count_cells_and_faces, marching_tetrahedra_numpy,
+                                 mesh_to_host, mirror_and_concat,
+                                 network_output_to_dpsr_grid, point_rasterize)
 from slide_tpu_torch.train import driver as train_driver
 from slide_tpu_torch.train.checkpoint import find_max_iter
+
+# the mesh gate, shared with the tests (numpy only)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from mesh_compare import MESH_NORMAL_ATOL, MESH_VERT_ATOL, mesh_difference  # noqa: E402
 
 faulthandler.dump_traceback_later(600, exit=True)
 
@@ -120,6 +145,17 @@ GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
 # trim, level 2's SA stack and trim, level 3's SA stack and trim
 DECODE_FPS = [(512, 256), (256, 128), (128, 64), (64, 16), (2048, 1024),
               (1024, 256), (256, 64), (64, 16), (4096, 2048)]
+# (N, K) of the FPS calls of the SAP net's four SA levels on the mirrored
+# cloud of 2 x 2048 points
+SAP_FPS = [(4096, 1024), (1024, 256), (256, 64), (64, 16)]
+PASS_FPS = DECODE_FPS + SAP_FPS
+# the samples of the counted pass whose meshes are held to the numpy oracle's
+MESH_SAMPLES = 4
+# DPSR on the card against DPSR on the CPU, same points and normals, on
+# fields of magnitude ~1: the card's scatter adds in no fixed order and
+# cuFFT rounds otherwise than the CPU's FFT (measured 5.4e-7 on a sphere's
+# 2 x 20480 points at 128^3)
+DPSR_ATOL = 1e-5
 # (N, K, batch) of training's call (the keypoints of a 2048-point cloud and
 # its centroid)
 TRAIN_FPS = (2049, 16, 32)
@@ -171,7 +207,7 @@ def bound(parts) -> tuple[float, str]:
 def phase_k3(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     per_shape, max_err = {}, 0
-    for n, k, b in sorted({(n, k, BATCH) for n, k in DECODE_FPS} | {TRAIN_FPS}):
+    for n, k, b in sorted({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS}):
         xyz = torch.randn((b, n, 3), generator=gen, device=dev)
         starts = {"random": torch.randint(0, n, (b,), generator=gen, device=dev,
                                           dtype=torch.int32),
@@ -411,25 +447,127 @@ def phase_k1(stages, dev) -> tuple[dict, float]:
 
 
 def run_slice(phase, stages, seed, want_fused):
-    """One counted pass of `generate`: launch counts from zero, shape and
-    finiteness checks, one log line."""
+    """One counted pass of `generate`: launch counts from zero, shape,
+    finiteness and mesh checks, one log line."""
     _build.launch_counts.clear()
     out = generate(stages, seed=seed)
     launches = dict(_build.launch_counts)
-    cloud = out["cloud"]
-    finite = bool(torch.isfinite(cloud).all())
-    log(phase, batch=stages.batch, seconds=out["seconds"], shape=list(cloud.shape),
-        finite=finite, launches=launches)
-    if tuple(cloud.shape) != (stages.batch, 2048, 6) or not finite:
-        raise AssertionError(f"{phase}: bad cloud: shape {tuple(cloud.shape)}, "
-                             f"finite {finite}")
-    if launches.get("fps", 0) < len(DECODE_FPS):
-        raise AssertionError(f"{phase}: decode launched the FPS kernel "
-                             f"{launches.get('fps', 0)} times, expected {len(DECODE_FPS)}")
+    b = stages.batch
+    res = stages.dpsr.res
+    norms = torch.linalg.vector_norm(out["normals"], dim=-1)
+    checks = {
+        "cloud": tuple(out["cloud"].shape) == (b, 2048, 6)
+        and bool(torch.isfinite(out["cloud"]).all()),
+        "grid": tuple(out["grid"].shape) == (b, *res) and bool(torch.isfinite(out["grid"]).all()),
+        "meshes": bool((out["n_faces"] > 0).all()),
+        "points": tuple(out["points"].shape) == (b, 2048, 3)
+        and bool(torch.isfinite(out["points"]).all()),
+        "unit_normals": bool(((norms - 1).abs() < 1e-4).all()),
+    }
+    log(phase, batch=b, seconds=out["seconds"], shape=list(out["cloud"].shape),
+        grid=list(out["grid"].shape), checks=checks, launches=launches,
+        n_faces=out["n_faces"].tolist(), n_cells=out["n_cells"].tolist())
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"{phase}: failed {bad}")
+    if launches.get("fps", 0) != len(PASS_FPS):
+        raise AssertionError(f"{phase}: {launches.get('fps', 0)} FPS launches, expected "
+                             f"{len(PASS_FPS)} (the decode's {len(DECODE_FPS)}, the SAP "
+                             f"net's {len(SAP_FPS)})")
     if launches.get("fused_denoiser", 0) != want_fused:
         raise AssertionError(f"{phase}: {launches.get('fused_denoiser', 0)} fused "
                              f"denoiser launches, expected {want_fused}")
     return out, launches
+
+
+class Parts:
+    """Device ms of named parts of a run, timed with CUDA events."""
+
+    def __init__(self):
+        self.events = {}
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.events[name] = (start, end)
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {k: start.elapsed_time(end) for k, (start, end) in self.events.items()}
+
+
+def top_kernels(fn, n: int = 10) -> list:
+    """The kernels of one call of `fn` that take the most time on the card,
+    from the profiler: [name, ms, launches]."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, _device_us(e) / 1e3, e.count) for e in prof.key_averages()
+            if _device_us(e) > 0]
+    return [list(r) for r in sorted(rows, key=lambda r: -r[1])[:n]]
+
+
+def phase_mesh(stages, out, dev) -> dict:
+    """The counted pass's meshes against the numpy oracle, the dense counts
+    against the extraction's, `sap_dpsr` by parts, and DPSR card vs CPU."""
+    grid = out["grid"]
+    res = grid.shape[-1]
+    faces = out["n_faces"].tolist()
+    picks = sorted({0, 1, int(np.argmax(faces)), int(np.argmin(faces))})[:MESH_SAMPLES]
+    per_sample = {}
+    for i in picks:
+        want = marching_tetrahedra_numpy(grid[i].cpu().numpy())
+        err = mesh_difference(mesh_to_host(out["mesh"], i), want, float(res))
+        per_sample[i] = err
+        if not (err["same_sizes"] and err["same_faces"] and err["vert_err"] <= MESH_VERT_ATOL
+                and err["normal_err"] <= MESH_NORMAL_ATOL):
+            raise AssertionError(f"mesh: sample {i} differs from the numpy oracle: {err}")
+    cells, dense_faces = count_cells_and_faces(grid)
+    if not (torch.equal(cells, out["n_cells"]) and torch.equal(dense_faces, out["n_faces"])):
+        raise AssertionError("mesh: the dense counts differ from the extraction's")
+
+    # sap_dpsr again, by parts: the stages' code, with DPSR's steps timed
+    parts = Parts()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dpsr = stages.dpsr
+
+    def timed_dpsr(v, n):
+        with parts("raster"):
+            ras = point_rasterize(v, n, dpsr.res)
+        with parts("fft_solve"):
+            phi = dpsr.solve(ras)
+        with parts("grid_interp"):
+            return dpsr.shift_and_scale(phi, v)
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        with parts("sap_net"):
+            xm = mirror_and_concat(out["cloud"], axis=2, attach_label=True, generator=gen)[0]
+            disp = stages.sap_net(xm, ts=None, label=stages.label)
+        phi, points, normals = network_output_to_dpsr_grid(
+            xm, disp, timed_dpsr, 1, stages.sap_config, last_dim_as_indicator=True,
+            explicit_normalize=True)
+        sap_dpsr_ms = parts.ms()
+        again = dpsr(points, normals)
+        t0 = time.perf_counter()
+        want = DPSR(dpsr.res, sig=dpsr.sig)(points.cpu(), normals.cpu())
+        cpu_s = time.perf_counter() - t0
+    dpsr_err = float((phi.cpu() - want).abs().max())
+    repeat_err = float((again - phi).abs().max())
+    log("mesh", samples=picks, per_sample=per_sample, n_cells=cells.tolist(),
+        sap_dpsr_top_kernels=top_kernels(lambda: stages.sap(out["cloud"], gen)),
+        n_faces=dense_faces.tolist(), vert_atol=MESH_VERT_ATOL, normal_atol=MESH_NORMAL_ATOL,
+        sap_dpsr_ms=sap_dpsr_ms, points=list(points.shape),
+        dpsr_card_vs_cpu=dpsr_err, dpsr_atol=DPSR_ATOL, dpsr_two_card_runs=repeat_err,
+        dpsr_max_abs=float(want.abs().max()), dpsr_cpu_seconds=cpu_s)
+    if not (dpsr_err <= DPSR_ATOL and bool(torch.isfinite(phi).all())):
+        raise AssertionError(f"mesh: DPSR on the card and on the CPU differ by {dpsr_err}")
+    return per_sample
 
 
 def phase_net(stages, dev):
@@ -730,7 +868,9 @@ def main():
     # the main path: a warm-up pass, then the counted pass
     warm = generate(stages, seed=1)
     log("slice_warmup", seconds=warm["seconds"])
-    _, launches = run_slice("slice", stages, 0, want_fused=2 * T_STEPS)
+    out, launches = run_slice("slice", stages, 0, want_fused=2 * T_STEPS)
+    phase_mesh(stages, out, dev)
+    del out
     run_slice("fastdpm", with_fastdpm(stages, FASTDPM_STEPS), 2,
               want_fused=2 * FASTDPM_STEPS)
 
@@ -745,10 +885,10 @@ def main():
 
     train = phase_train(dev)
 
-    # FPS: one decode's worth of calls, summed
-    ms = sum(per_shape[s][0] for s in DECODE_FPS)
-    plain_ms = sum(per_shape[s][1] for s in DECODE_FPS)
-    bound_ms, bound_by = bound([sum(per_shape[s][2][i] for s in DECODE_FPS)
+    # FPS: one pass's worth of calls (the decode's and the SAP net's), summed
+    ms = sum(per_shape[s][0] for s in PASS_FPS)
+    plain_ms = sum(per_shape[s][1] for s in PASS_FPS)
+    bound_ms, bound_by = bound([sum(per_shape[s][2][i] for s in PASS_FPS)
                                 for i in range(2)])
     # K1: per launch of the main path, which runs the kp and latent nets
     # 1000 times each at batch 16: the mean of the two
@@ -763,7 +903,12 @@ def main():
         "replaces": "slide_tpu/ops/pallas/fps.py:98",
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "launches_train": train["launches"].get("fps", 0)}, {
+        "library_ms": None, "launches_train": train["launches"].get("fps", 0),
+        "decode_ms": sum(per_shape[s][0] for s in DECODE_FPS),
+        "sap_ms": sum(per_shape[s][0] for s in SAP_FPS),
+        "sap_plain_ms": sum(per_shape[s][1] for s in SAP_FPS),
+        "sap_bound_ms": bound([sum(per_shape[s][2][i] for s in SAP_FPS)
+                               for i in range(2)])[0]}, {
         "name": "fused_denoiser", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",

@@ -1,6 +1,7 @@
 """Config presets of the generation path (a copy of the position DDPM, feature
-DDPM and autoencoder presets of `slide_tpu/configs/presets.py`; the port keeps
-its own copy and imports nothing of the JAX package).
+DDPM, autoencoder and SAP refine+upsample presets of
+`slide_tpu/configs/presets.py`; the port keeps its own copy and imports
+nothing of the JAX package).
 
 Hyperparameters mirror
 `pointnet2/configs/shapenet_psr_configs/ddpm_keypoint_training_configs/
@@ -226,6 +227,98 @@ def autoencoder_config(category: str = "airplane", *, batch_size: int = 32) -> d
             "keypoints_source": "farthest_points_sampling",
             "augmentation": {"mirror_prob": 0.5, "translation_magnitude": 0.1,
                              "augm_scale": 1.2},
+        },
+        "dist_config": {"dist_backend": "jax", "CUDA_VISIBLE_DEVICES": None},
+    }
+
+
+def upsampler_config(*, batch_size: int = 32) -> dict:
+    """SAP refine+upsample network config mirroring
+    `refine_and_upsample_configs/config_refine_and_upsample_standard_attention_
+    s3_noise_0.02_symmetry.json` (trained on ALL categories)."""
+    return {
+        "pointnet_config": {
+            "model_name": "sap_refine_upsample_noise_0.02_symmetry",
+            "in_fea_dim": 4,           # normals(3) + mirror indicator(1)
+            "out_dim": 6,
+            "include_t": False,
+            "t_dim": 128,
+            "model.use_xyz": True,
+            "attach_position_to_input_feature": True,
+            "include_abs_coordinate": True,
+            "include_center_coordinate": True,
+            "record_neighbor_stats": False,
+            "bn_first": False,
+            "bias": True,
+            "res_connect": True,
+            "include_class_condition": True,
+            "num_class": 13,
+            "class_condition_dim": 128,
+            "bn": True,
+            "include_local_feature": False,
+            "include_global_feature": False,
+            "global_feature_remove_last_activation": False,
+            "pnet_global_feature_architecture": [[4, 128, 256], [512, 1024]],
+            "attention_setting": copy.deepcopy(_ATTENTION),
+            "architecture": {
+                "npoint": [1024, 256, 64, 16],
+                "radius": [0.1, 0.2, 0.4, 0.8],
+                "neighbor_definition": "nn",
+                "nsample": [32, 32, 32, 32],
+                "feature_dim": [32, 64, 128, 256, 512],
+                "mlp_depth": 3,
+                "decoder_feature_dim": [128, 128, 256, 256, 512],
+                "include_grouper": False,
+                "decoder_mlp_depth": 2,
+                "use_knn_FP": True,
+                "K": 8,
+            },
+            "point_upsample_factor": 5,
+            "first_refine_coarse_points": False,
+            "include_displacement_center_to_final_output": False,
+            "output_scale_factor": 0.001,
+            "condition_net_architecture": None,
+            "feature_mapper_architecture": None,
+        },
+        "dpsr_config": {
+            "grid_res": 128,
+            "psr_sigma": 2,
+            "psr_tanh": True,
+            "mirror_before_upsampling": True,
+            "only_original_points_split": False,
+        },
+        "train_config": {
+            "task": "upsample",
+            "dataset": "shapenet_psr_dataset",
+            "root_directory": "exps/sap_upsampler",
+            "output_directory": "checkpoint",
+            "tensorboard_directory": "tensorboard",
+            "ckpt_iter": "max",
+            "epochs_per_ckpt": 10,
+            "iters_per_logging": 50,
+            "n_epochs": 1000,
+            "eval_start_epoch": 0,
+            "eval_per_ckpt": 1,
+            "learning_rate": 0.0002,
+            "loss_type": "mse",
+            "conditioned_on_cloud": False,
+            "split_dataset_to_multi_gpus": True,
+        },
+        "shapenet_psr_dataset_config": {
+            "dataset": "shapenet_psr_dataset",
+            "data_dir": "data/shapenet_psr",
+            "categories": None,        # all 13 categories
+            "npoints": 2048,
+            "scale": 1,
+            "batch_size": batch_size,
+            "eval_batch_size": 32,
+            "num_workers": 4,
+            "num_samples_tested": 128,
+            "load_psr": True,
+            "centered_to_centroid": False,
+            "num_keypoints": 16,
+            "keypoints_source": "farthest_points_sampling",
+            "augmentation": {"noise_magnitude": 0.02},
         },
         "dist_config": {"dist_backend": "jax", "CUDA_VISIBLE_DEVICES": None},
     }

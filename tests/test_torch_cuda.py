@@ -1,5 +1,6 @@
 """Tests of the port's CUDA kernels (FPS, the fused denoiser and its
-backward) on the card; they skip without one.
+backward) and of the mesh stages (DPSR, the extraction, the SAP net) on the
+card; they skip without one.
 
 On a machine with the card, `nvcc` and no JAX, run them from the repository
 root with `python3 -m pytest --noconftest -q tests/test_torch_cuda.py` (the
@@ -326,3 +327,251 @@ def test_k2_wrapper_counts_launches_and_checks_inputs(fused_nets):
     with pytest.raises(ValueError):
         fd.fused_backward_cuda(fn.packed, pc, t4, cls, g, fn.packed.flat[:-32].contiguous())
     assert _build.launch_counts["fused_denoiser_bwd"] == before + 2
+
+
+# ---------------------------------------------------------------------------
+# The mesh stages on the card against the same code on the CPU: DPSR (its
+# scatter adds in no fixed order there, cuFFT rounds otherwise), the
+# extraction against the numpy oracle, the full-width SAP net (TF32 off).
+
+DPSR_CARD_ATOL = 1e-5       # chip_smoke.py's DPSR_ATOL (measured 5.4e-7 here)
+SAP_NET_CARD_ATOL = 1e-4    # of max(1, max |output|)
+
+
+def _sphere_points(b, n, seed):
+    gen = torch.Generator().manual_seed(seed)
+    d = torch.randn((b, n, 3), generator=gen)
+    nrm = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    scale = 0.8 + 0.2 * torch.rand((b, n, 1), generator=gen)
+    return torch.clamp(0.5 + 0.3 * nrm * scale, 0.0, 0.99), nrm
+
+
+@pytest.mark.cuda
+def test_dpsr_card_matches_cpu(cuda):
+    from slide_tpu_torch.sap import DPSR
+    from slide_tpu_torch.sap.dpsr import _irfftn, point_rasterize
+    v, n = _sphere_points(2, 20480, 0)
+    solver = DPSR((128,) * 3, sig=2)
+    want = solver(v, n)
+    got = solver.to(cuda)(v.to(cuda), n.to(cuda))
+    assert got.shape == (2, 128, 128, 128) and torch.isfinite(got).all()
+    err = float((got.cpu() - want).abs().max())
+    print(f"dpsr card vs cpu: {err} of max {float(want.abs().max())}")
+    assert err <= DPSR_CARD_ATOL
+    # the inverse alone on one spectrum: cuFFT's multi-dimensional real
+    # inverse reads the non-Hermitian zero and Nyquist bins of DPSR's
+    # spectrum otherwise than the CPU's; `_irfftn` reads them as the CPU does
+    ras = point_rasterize(v, n, (128,) * 3)
+    spec = torch.fft.rfftn(ras, dim=(2, 3, 4))[:, 0] * (1j * solver.omega[..., 0].cpu())
+    cpu = torch.fft.irfftn(spec, s=(128,) * 3, dim=(1, 2, 3))
+    library = float((torch.fft.irfftn(spec.to(cuda), s=(128,) * 3, dim=(1, 2, 3)).cpu()
+                     - cpu).abs().max())
+    written_out = float((_irfftn(spec.to(cuda), (128,) * 3).cpu() - cpu).abs().max())
+    print(f"inverse card vs cpu: irfftn {library}, _irfftn {written_out} "
+          f"of max {float(cpu.abs().max())}")
+    assert written_out <= 1e-5 * float(cpu.abs().max())
+
+
+def _noisy_sphere(r, seed, noise=0.04):
+    gen = torch.Generator().manual_seed(seed)
+    ax = torch.arange(r, dtype=torch.float64) / (r - 1.0) - 0.5
+    x, y, z = torch.meshgrid(ax, ax, ax, indexing="ij")
+    return (0.35 - torch.sqrt(x * x + y * y + z * z)
+            + noise * torch.randn((r, r, r), generator=gen, dtype=torch.float64)).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [0.0, 0.05])
+def test_marching_card_matches_the_numpy_oracle(cuda, level):
+    from mesh_compare import assert_same_mesh
+    from slide_tpu_torch.sap import (count_cells_and_faces, marching_tetrahedra_device,
+                                     marching_tetrahedra_numpy, mesh_to_host)
+    vols = torch.stack([_noisy_sphere(64, 1), _noisy_sphere(64, 2), _noisy_sphere(64, 3, 0.0)])
+    mesh = marching_tetrahedra_device(vols.to(cuda), level)
+    cells, faces = count_cells_and_faces(vols.to(cuda), level)
+    assert torch.equal(cells, mesh["n_cells"]) and torch.equal(faces, mesh["n_faces"])
+    for i in range(3):
+        assert_same_mesh(mesh_to_host(mesh, i),
+                         marching_tetrahedra_numpy(vols[i].numpy(), level))
+
+
+@pytest.mark.cuda
+def test_extract_and_sample_on_the_card(cuda):
+    from slide_tpu_torch.sap import extract_and_sample_device
+    vols = torch.stack([_noisy_sphere(64, 4), torch.full((64, 64, 64), 2.0)]).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pts, nrm, n_faces, n_cells, _ = extract_and_sample_device(vols, gen, 2048)
+    assert pts.device.type == "cuda" and pts.shape == (2, 2048, 3)
+    assert int(n_faces[0]) > 0 and int(n_faces[1]) == 0 and int(n_cells[1]) == 0
+    assert torch.isfinite(pts[0]).all() and torch.isnan(pts[1]).all()
+    norms = torch.linalg.vector_norm(nrm[0], dim=-1)
+    assert float((norms - 1).abs().max()) < 1e-4
+
+
+def _record_knn(monkeypatch):
+    """Record every kNN search of the neighbourhood modules: (query, points,
+    k) and the (sqdists, idx) it returned, on the host."""
+    import slide_tpu_torch.nn.neighborhood as nb
+    calls, real = [], nb.knn_points
+
+    def recording(query, points, k):
+        sqd, idx = real(query, points, k)
+        calls.append([t.cpu() for t in (query, points, sqd, idx)])
+        return sqd, idx
+
+    monkeypatch.setattr(nb, "knn_points", recording)
+    return calls
+
+
+def _replay_knn(monkeypatch, calls):
+    """Hand the recorded searches to a run on the CPU.  Its own search on
+    the same points must give the recorded distances to fp32 rounding of
+    ||x||^2 - 2<x, y> + ||y||^2 and the same neighbour sets, or sets that
+    part at a tie (the float64 distances of the points in one set and not
+    the other within that rounding).  Returns the iterator, which counts
+    the rows that part at a tie."""
+    import slide_tpu_torch.nn.neighborhood as nb
+    from slide_tpu_torch.ops.neighbors import knn_points
+
+    class Replay:
+        """The recorded calls, and the count of rows that part at a tie."""
+
+        def __init__(self):
+            self.calls, self.ties = iter(calls), 0
+
+        def __iter__(self):
+            return self
+
+        def __next__(self):
+            return next(self.calls)
+
+    replay = Replay()
+
+    def replaying(query, points, k):
+        c_query, c_points, c_sqd, c_idx = next(replay)
+        assert torch.equal(query, c_query) and torch.equal(points, c_points)
+        scale = (query.square().sum(-1).amax() + points.square().sum(-1).amax()).item()
+        tol = 1e-6 * scale
+        sqd, idx = knn_points(query, points, k)
+        own = torch.gather(((query[:, :, None].double() - points[:, None].double()) ** 2).sum(-1),
+                           2, c_idx)
+        assert float((own - c_sqd.double()).abs().max()) <= tol
+        differ = (torch.sort(idx, -1)[0] != torch.sort(c_idx, -1)[0]).any(-1)
+        for b, m in differ.nonzero().tolist():
+            d64 = ((query[b, m].double() - points[b].double()) ** 2).sum(-1)
+            sym = list(set(idx[b, m].tolist()) ^ set(c_idx[b, m].tolist()))
+            assert float(d64[sym].max() - d64[sym].min()) <= tol
+            replay.ties += 1
+        return c_sqd, c_idx
+
+    monkeypatch.setattr(nb, "knn_points", replaying)
+    return replay
+
+
+def _record_fps(monkeypatch):
+    """Record the picks of the SA levels' FPS calls, on the host."""
+    import slide_tpu_torch.nn.modules as modules
+    picks, real = [], modules.furthest_point_sample
+
+    def recording(xyz, k, *args, **kwargs):
+        idx = real(xyz, k, *args, **kwargs)
+        picks.append(idx.cpu())
+        return idx
+
+    monkeypatch.setattr(modules, "furthest_point_sample", recording)
+    return picks
+
+
+def _run_by_level(net, xm, label):
+    """The net's output and each SA / FP level's and the head's, as float64
+    on the host."""
+    levels, handles = {}, []
+    for name, mod in net.named_children():
+        if name.startswith(("sa_", "fp_")) or name == "head_conv_out":
+            def keep(m, args, out, name=name):
+                levels[name] = (out[1] if isinstance(out, tuple) else out).cpu().double()
+            handles.append(mod.register_forward_hook(keep))
+    try:
+        with torch.no_grad():
+            out = net(xm, ts=None, label=label).cpu()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, levels
+
+
+def _float64_by_level(monkeypatch, net, xm, label, knn_calls, picks):
+    """The CPU module run in float64 on the card's FPS picks and kNN searches,
+    the squared distances as the card's fp32 gave them: what is left between
+    it and a fp32 run is that run's rounding elsewhere."""
+    import copy
+
+    import slide_tpu_torch.nn.modules as modules
+    import slide_tpu_torch.nn.neighborhood as nb
+    knn, fps_picks = iter(knn_calls), iter(picks)
+
+    def replaying(query, points, k):
+        c_query, _, c_sqd, c_idx = next(knn)
+        assert float((query - c_query.double()).abs().max()) <= 1e-4
+        return c_sqd.double(), c_idx
+
+    monkeypatch.setattr(nb, "knn_points", replaying)
+    monkeypatch.setattr(modules, "furthest_point_sample", lambda xyz, k, *a, **kw: next(fps_picks))
+    out = _run_by_level(copy.deepcopy(net).double(), xm.double(), label)
+    assert next(knn, None) is None and next(fps_picks, None) is None
+    return out
+
+
+@pytest.mark.cuda
+def test_full_width_sap_net_card_matches_cpu(cuda, monkeypatch):
+    # The KnnFP levels weight each neighbour by 1 / (d + 1e-8), and every
+    # query coincides with one of its neighbours, whose squared distance is
+    # fp32 rounding noise of the order of 1e-8: noise of 1e-8 there moves the
+    # outputs (up to ~340) by 0.03.  So the card's distances and neighbour
+    # sets, held to the CPU's first, are handed to the CPU run.  Both runs
+    # are then read against the float64 forward on the same searches, level
+    # by level, which shows how far each one's own fp32 rounding carries.
+    from slide_tpu_torch.configs import upsampler_config
+    from slide_tpu_torch.models import ConditionalPointNet2
+    from slide_tpu_torch.pipeline import DEFAULT_CKPTS
+    from slide_tpu_torch.sap import mirror_and_concat
+    from slide_tpu_torch.weights import load_flax_params, load_inference_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = ConditionalPointNet2(upsampler_config()["pointnet_config"])
+    load_flax_params(net, load_inference_params(str(DEFAULT_CKPTS["sap"]), -1))
+    net.eval()
+    # an ellipsoid's surface and normals, mirrored: 2 x 2048 points
+    gen = torch.Generator().manual_seed(0)
+    axes = torch.tensor([0.45, 0.15, 0.3])
+    p = torch.randn((2, 2048, 3), generator=gen)
+    p = p / torch.linalg.vector_norm(p, dim=-1, keepdim=True) * axes
+    nrm = p / axes ** 2
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    xm = mirror_and_concat(torch.cat([p, nrm], dim=-1), axis=2, attach_label=True,
+                           generator=gen)[0]
+    label = torch.zeros(2, dtype=torch.int64)
+    calls = _record_knn(monkeypatch)
+    picks = _record_fps(monkeypatch)
+    before = _build.launch_counts["fps"]
+    got, got_levels = _run_by_level(net.to(cuda), xm.to(cuda), label.to(cuda))
+    assert _build.launch_counts["fps"] == before + 4       # the four SA levels on K3
+    card_calls, card_picks = list(calls), list(picks)
+    with torch.no_grad():
+        own = net.cpu()(xm, ts=None, label=label)
+    replay = _replay_knn(monkeypatch, card_calls)
+    want, want_levels = _run_by_level(net, xm, label)
+    assert next(replay, None) is None and len(card_calls) == 8 and len(card_picks) == 4
+    assert got.shape == (2, 4096, 30)
+    err = float((got - want).abs().max())
+    print(f"sap net card vs cpu: {err} of max {float(want.abs().max())} with the card's "
+          f"kNN replayed, {float((got - own).abs().max())} without; neighbour sets that "
+          f"part at a tie: {replay.ties}")
+    out64, levels64 = _float64_by_level(monkeypatch, net, xm, label, card_calls, card_picks)
+    print(f"against float64 on the card's searches: card {float((got - out64).abs().max())}, "
+          f"cpu {float((want - out64).abs().max())}")
+    for name, ref in levels64.items():
+        print(f"  {name}: max {float(ref.abs().max())}, card "
+              f"{float((got_levels[name] - ref).abs().max())}, cpu "
+              f"{float((want_levels[name] - ref).abs().max())}")
+    assert err <= SAP_NET_CARD_ATOL * max(1.0, float(want.abs().max()))

@@ -1,10 +1,16 @@
-"""The whole slice, position DDPM -> feature DDPM -> AE decode, built by the
-port's `build_stages` (fused denoisers by default) and run against the JAX
-composition of the same three stages (`benchmarks/e2e_pipeline.py::
-device_chain`, flax modules) at narrow widths and T=4, on the CPU.  The JAX noise is replayed through `noise_fn` and the decode's
-FPS calls through the record / replay of `torch_port_helpers`.  Tolerances:
-1e-4 on the two chains (fp32 PointNet steps, sums in another order), then
-`DECODE_ATOL` on the decoded cloud."""
+"""The whole slice, position DDPM -> feature DDPM -> AE decode -> SAP
+refine+upsample -> DPSR -> marching tetrahedra and surface sampling, built
+by the port's `build_stages` (fused denoisers by default) and run through
+`generate(device="cpu")` against the JAX composition of the same stages
+(`benchmarks/e2e_pipeline.py::device_chain` and its `sap_fn`, flax modules,
+built here) at narrow widths, T=4 and DPSR at 32^3, on the CPU.  The JAX
+noise, the decode's FPS starts and the mirror's permutation are replayed
+through `generate`'s `noise_fn`, `start_fn` and `perm`, and every FPS call
+(the decode's and the SAP net's SA levels') through the record / replay of
+`torch_port_helpers`.  Tolerances: 1e-4 on the two chains (fp32 PointNet
+steps, sums in another order), then `DECODE_ATOL` on the decoded cloud and
+`GRID_ATOL` on the DPSR grid; the port's mesh equals the numpy oracle's on
+the port's own grid (`mesh_compare.assert_same_mesh`)."""
 
 import jax
 import jax.numpy as jnp
@@ -18,16 +24,25 @@ from slide_tpu.diffusion import diffusion_sampling as j_diffusion_sampling
 from slide_tpu.diffusion.x0 import X0Schedule as JX0Schedule
 from slide_tpu.diffusion.x0 import x0_denoise as j_x0_denoise
 from slide_tpu.models import ConditionalPointNet2 as JNet
+from slide_tpu.sap import DPSR as JDPSR
+from slide_tpu.sap import network_output_to_dpsr_grid as j_network_output_to_dpsr_grid
+from slide_tpu.sap.marching import marching_tetrahedra_numpy
+from slide_tpu.sap.mirror import mirror_and_concat as j_mirror_and_concat
 from slide_tpu.train import build_autoencoder as j_build_ae
 from slide_tpu_torch import _build
 from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
                                      latent_ddpm_config)
 from slide_tpu_torch.pipeline import build_stages, generate, resolve_device, with_fastdpm
-from torch_port_helpers import (DECODE_ATOL, assert_close, perturb, record_jax_fps,
-                                replay_fps_in_port, small_ae_config, to_np,
-                                trim_starts)
+from slide_tpu_torch.sap import mesh_to_host
+from mesh_compare import assert_same_mesh
+from torch_port_helpers import (DECODE_ATOL, TRIM_CALLS, assert_close, narrow_sap_config,
+                                perturb, record_jax_fps, replay_fps_in_port,
+                                small_ae_config, to_np, trim_starts)
 
 B, K, T = 2, 16, 4
+# the grid at 32^3 (values up to ~1), behind the decoded cloud's differences:
+# measured 3.9e-5
+GRID_ATOL = 2e-4
 
 
 def _narrow_configs():
@@ -41,7 +56,7 @@ def _narrow_configs():
                                   mlp_depth=2, decoder_mlp_depth=2)
     ae = autoencoder_config()
     ae["pointnet_config"] = small_ae_config()
-    return {"kp": kp, "lat": lat, "ae": ae}
+    return {"kp": kp, "lat": lat, "ae": ae, "sap": narrow_sap_config()}
 
 
 def _flax_params(module, key, *args, **kwargs):
@@ -65,7 +80,8 @@ def narrow():
     label = jnp.zeros((B,), jnp.int32)
     nets = {"kp": JNet(cfgs["kp"]["pointnet_config"]),
             "lat": JNet(cfgs["lat"]["pointnet_config"]),
-            "ae": j_build_ae(cfgs["ae"]["pointnet_config"])}
+            "ae": j_build_ae(cfgs["ae"]["pointnet_config"]),
+            "sap": JNet(cfgs["sap"]["pointnet_config"])}
     zeros_t = jnp.zeros((B,), jnp.int32)
     params = {
         "kp": _flax_params(nets["kp"], jax.random.key(1), jnp.zeros((B, K, 3)),
@@ -73,15 +89,18 @@ def narrow():
         "lat": _flax_params(nets["lat"], jax.random.key(2), jnp.zeros((B, K, 19)),
                             ts=zeros_t, label=label),
         "ae": _flax_params(nets["ae"], jax.random.key(3), jnp.zeros((B, K, 3)),
-                           jnp.zeros((B, K, 16)), label=label, method=nets["ae"].decode)}
+                           jnp.zeros((B, K, 16)), label=label, method=nets["ae"].decode),
+        "sap": _flax_params(nets["sap"], jax.random.key(4), jnp.zeros((B, 400, 7)),
+                            ts=None, label=label)}
     return cfgs, nets, params
 
 
 def test_slice_matches_the_jax_composition(monkeypatch, narrow):
     cfgs, nets, params = narrow
-    kp_net, lat_net, jae = nets["kp"], nets["lat"], nets["ae"]
-    kp_params, lat_params, ae_params = params["kp"], params["lat"], params["ae"]
+    kp_net, lat_net, jae, jsap = nets["kp"], nets["lat"], nets["ae"], nets["sap"]
     label = jnp.zeros((B,), jnp.int32)
+    sap_pc = cfgs["sap"]["pointnet_config"]
+    res = (cfgs["sap"]["dpsr_config"]["grid_res"],) * 3
 
     # the JAX composition, keys split as device_chain splits them
     ks = jax.random.split(jax.random.key(100), 4)
@@ -89,43 +108,71 @@ def test_slice_matches_the_jax_composition(monkeypatch, narrow):
 
     def chain(ks):
         kp = j_diffusion_sampling(
-            lambda x, ts: kp_net.apply({"params": kp_params}, x, ts=ts, label=label),
+            lambda x, ts: kp_net.apply({"params": params["kp"]}, x, ts=ts, label=label),
             ks[0], (B, K, 3), j_eps_sched(T, 1e-4, 0.02))
         sdc = dict(cfgs["lat"]["standard_diffusion_config"], num_diffusion_timesteps=T)
         latent = j_x0_denoise(
-            lambda x, ts: lat_net.apply({"params": lat_params}, x, ts=ts, label=label),
+            lambda x, ts: lat_net.apply({"params": params["lat"]}, x, ts=ts, label=label),
             ks[1], (B, K, 19), JX0Schedule.from_config(sdc), keypoint=kp, keypoint_dim=3)
-        cloud = jae.apply({"params": ae_params}, latent[..., :3], latent[..., 3:],
+        cloud = jae.apply({"params": params["ae"]}, latent[..., :3], latent[..., 3:],
                           label=label, method=jae.decode, rngs={"fps": ks[2]})
-        return kp, latent, cloud
+        # e2e_pipeline.py's sap_fn
+        xm = j_mirror_and_concat(cloud, axis=2, num_points=(), attach_label=True,
+                                 permute=True, key=ks[3])[0]
+        disp = jsap.apply({"params": params["sap"]}, xm, ts=None, label=label)
+        grid, _, _ = j_network_output_to_dpsr_grid(
+            xm, disp, JDPSR(res, sig=2), 1, sap_pc, last_dim_as_indicator=True,
+            explicit_normalize=True)
+        return kp, latent, cloud, grid
 
-    j_kp, j_latent, j_cloud = jax.jit(chain)(ks)
+    j_kp, j_latent, j_cloud, j_grid = jax.jit(chain)(ks)
     jax.effects_barrier()
+    assert len(calls) == len(TRIM_CALLS) + 6 + 4      # decode's 9, then the SAP net's 4
 
     stages = build_stages(B, T, ckpts=params, device="cpu", configs=cfgs)
-    kp_noise = iter(_chain_draws(ks[0], (B, K, 3), T))
-    kp = stages.sample_kp(lambda shape: next(kp_noise))
-    np.testing.assert_allclose(to_np(kp), np.asarray(j_kp), atol=1e-4)
-    lat_noise = iter(_chain_draws(ks[1], (B, K, 19), T))
-    latent = stages.sample_lat(lambda shape: next(lat_noise), kp)
-    np.testing.assert_allclose(to_np(latent), np.asarray(j_latent), atol=1e-4)
+    draws = iter(_chain_draws(ks[0], (B, K, 3), T) + _chain_draws(ks[1], (B, K, 19), T))
 
-    replay = replay_fps_in_port(monkeypatch, calls, DECODE_ATOL)
-    cloud = stages.decode(latent[..., :3], latent[..., 3:], trim_starts(calls))
-    assert next(replay, None) is None
-    assert cloud.shape == (B, 200, 6)
-    assert_close(j_cloud, cloud, DECODE_ATOL)
+    def noise_fn(shape):
+        d = next(draws)
+        assert tuple(d.shape) == tuple(shape)
+        return d
+
+    perm = torch.as_tensor(np.array(jax.random.permutation(ks[3], j_cloud.shape[1] * 2)))
+    replay = replay_fps_in_port(monkeypatch, calls, DECODE_ATOL,
+                                tie_calls=range(len(calls) - 4, len(calls)))
+    out = generate(stages, seed=0, noise_fn=noise_fn, start_fn=trim_starts(calls), perm=perm)
+    assert next(replay, None) is None and next(draws, None) is None
+    np.testing.assert_allclose(to_np(out["keypoints"]), np.asarray(j_kp), atol=1e-4)
+    np.testing.assert_allclose(to_np(out["features"]), np.asarray(j_latent[..., 3:]),
+                               atol=1e-4)
+    assert out["cloud"].shape == (B, 200, 6)
+    assert_close(j_cloud, out["cloud"], DECODE_ATOL)
+    assert out["grid"].shape == (B, *res)
+    np.testing.assert_allclose(to_np(out["grid"]), np.asarray(j_grid), atol=GRID_ATOL, rtol=0)
+
+    # the mesh of each sample is the numpy oracle's on the port's grid
+    assert out["points"].shape == (B, 2048, 3) and torch.isfinite(out["points"]).all()
+    for i in range(B):
+        want = marching_tetrahedra_numpy(to_np(out["grid"][i]))
+        assert int(out["n_faces"][i]) == len(want[1])
+        assert_same_mesh(mesh_to_host(out["mesh"], i), want, scale=float(res[0]))
 
 
 def test_generate_full_width_on_the_cpu():
-    # the shipped airplane presets and the committed checkpoints, T cut to 2
+    # the shipped presets and the committed checkpoints, T cut to 2
     stages = build_stages(1, t_steps=2, device="cpu")
     before = _build.launch_counts["fps"]
     out = generate(stages, seed=3)
     assert out["cloud"].shape == (1, 2048, 6)
     assert out["keypoints"].shape == (1, 16, 3) and out["features"].shape == (1, 16, 48)
     assert torch.isfinite(out["cloud"]).all()
-    assert set(out["seconds"]) == {"position_ddpm", "feature_ddpm", "ae_decode"}
+    assert out["grid"].shape == (1, 128, 128, 128) and torch.isfinite(out["grid"]).all()
+    assert out["points"].shape == (1, 2048, 3) and torch.isfinite(out["points"]).all()
+    norms = torch.linalg.vector_norm(out["normals"], dim=-1)
+    assert torch.allclose(norms, torch.ones_like(norms), atol=1e-5)
+    assert int(out["n_faces"][0]) > 0 and int(out["n_cells"][0]) > 0
+    assert set(out["seconds"]) == {"position_ddpm", "feature_ddpm", "ae_decode",
+                                   "sap_dpsr", "marching"}
     assert _build.launch_counts["fps"] == before   # the CPU runs the plain FPS
 
 
@@ -133,8 +180,9 @@ def test_generate_is_reproducible_from_its_seed(narrow):
     cfgs, _, params = narrow
     stages = build_stages(B, 3, ckpts=params, device="cpu", configs=cfgs)
     a, b, c = generate(stages, 5), generate(stages, 5), generate(stages, 6)
-    assert torch.equal(a["cloud"], b["cloud"])
-    assert not torch.equal(a["cloud"], c["cloud"])
+    for key in ("cloud", "grid", "points", "normals"):
+        assert torch.equal(a[key], b[key])
+        assert not torch.equal(a[key], c[key])
 
 
 def test_entry_points_need_the_card_unless_asked_for_the_cpu():
@@ -199,3 +247,4 @@ def test_fastdpm_generate_full_width_on_the_cpu():
     out = generate(stages, seed=4)
     assert calls == {"kp": 3, "lat": 3}
     assert out["cloud"].shape == (1, 2048, 6) and torch.isfinite(out["cloud"]).all()
+    assert out["points"].shape == (1, 2048, 3) and torch.isfinite(out["points"]).all()

@@ -99,6 +99,21 @@ def small_ae_config():
     return cfg
 
 
+def narrow_sap_config():
+    """The SAP refine+upsample preset at narrow widths, every SA level below
+    its input's size from 200 points on (so all four run FPS), kNN
+    neighbourhoods of 8 and KnnFP K=4; DPSR at 32^3."""
+    from slide_tpu_torch.configs import upsampler_config
+    cfg = copy.deepcopy(upsampler_config())
+    pc = cfg["pointnet_config"]
+    pc.update(class_condition_dim=16)
+    pc["architecture"].update(npoint=[96, 48, 24, 12], nsample=[8, 8, 8, 8],
+                              feature_dim=[8, 8, 16, 16, 32],
+                              decoder_feature_dim=[16, 16, 16, 16, 32], K=4)
+    cfg["dpsr_config"]["grid_res"] = 32
+    return cfg
+
+
 def record_jax_fps(monkeypatch):
     """Record every FPS call of the JAX decode (its trims and SA levels), in
     order, as [cloud, start (B,), indices]; works under jit."""
@@ -119,26 +134,58 @@ def record_jax_fps(monkeypatch):
     return calls
 
 
-def replay_fps_in_port(monkeypatch, calls, atol):
+# FPS picks of two fp32 implementations may part where two candidates' running
+# minimum distances are equal to rounding (mirrored clouds meet this): a gap
+# below 1e-6 of the farthest distance, some 8 fp32 ulps, is such a tie
+FPS_TIE_RTOL = 1e-6
+
+
+def fps_ties(xyz, k, start, j_idx, tie_rtol=FPS_TIE_RTOL) -> int:
+    """The port's FPS on the numpy cloud `xyz` against the JAX picks `j_idx`:
+    each row must give the same indices or first part from JAX's at a tie,
+    where the two candidates' running minimum distances (float64, over the
+    picks both made before) are the farthest to within `tie_rtol`.  Returns
+    the number of rows that part at a tie."""
+    from slide_tpu_torch.ops import furthest_point_sample
+    t_idx = to_np(furthest_point_sample(torch.as_tensor(xyz), k, torch.as_tensor(start)))
+    ties = 0
+    for b in np.nonzero((t_idx != j_idx).any(axis=1))[0]:
+        r = int(np.nonzero(t_idx[b] != j_idx[b])[0][0])
+        pts = xyz[b].astype(np.float64)
+        picked = pts[j_idx[b, :r]]
+        dist = ((pts[:, None, :] - picked[None]) ** 2).sum(-1).min(axis=1)
+        far = dist.max()
+        assert abs(dist[t_idx[b, r]] - dist[j_idx[b, r]]) <= tie_rtol * far, \
+            (b, r, dist[t_idx[b, r]], dist[j_idx[b, r]], far)
+        assert min(dist[t_idx[b, r]], dist[j_idx[b, r]]) >= far * (1 - tie_rtol)
+        ties += 1
+    return ties
+
+
+def replay_fps_in_port(monkeypatch, calls, atol, tie_calls=()):
     """Make the port's decode replay the recorded JAX FPS calls: the cloud
     it hands FPS must match the JAX one within atol, its start must be the
     JAX start, the port's own FPS on the JAX cloud must give the JAX indices
-    exactly, and the JAX indices are what it gets back, so a near-tie
-    between points 1e-6 apart cannot fork the two runs.  Returns the
-    iterator, to check that every call was replayed."""
+    exactly (or, at the call positions in `tie_calls`, part from them only
+    at a tie, `fps_ties`), and the JAX indices are what it gets back, so a
+    near-tie between points 1e-6 apart cannot fork the two runs.  Returns
+    the iterator, to check that every call was replayed."""
     import slide_tpu_torch.models.upsample_decoder as t_updec
     import slide_tpu_torch.nn.modules as t_modules
     from slide_tpu_torch.ops import furthest_point_sample
-    replay = iter(calls)
+    replay = iter(enumerate(calls))
 
     def replaying(xyz, k, start_idx=0, num_forced=0):
-        j_xyz, j_start, j_idx = next(replay)
+        i, (j_xyz, j_start, j_idx) = next(replay)
         np.testing.assert_allclose(to_np(xyz), j_xyz, atol=atol, rtol=1e-5)
         start = torch.broadcast_to(torch.as_tensor(start_idx), (xyz.shape[0],))
         np.testing.assert_array_equal(to_np(start), j_start)
-        np.testing.assert_array_equal(
-            to_np(furthest_point_sample(torch.as_tensor(j_xyz), k,
-                                        torch.as_tensor(j_start))), j_idx)
+        if i in tie_calls:
+            fps_ties(j_xyz, k, j_start, j_idx)
+        else:
+            np.testing.assert_array_equal(
+                to_np(furthest_point_sample(torch.as_tensor(j_xyz), k,
+                                            torch.as_tensor(j_start))), j_idx)
         return torch.as_tensor(j_idx)
 
     monkeypatch.setattr(t_updec, "furthest_point_sample", replaying)
