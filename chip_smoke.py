@@ -79,6 +79,21 @@ line each as soon as it ends:
            `train_position_ddpm` under `torch.profiler`: the card's busy ms
            per step, the idle share of the counted run's step, the kernels
            and host operations that take the most time
+  train_ae the point autoencoder at the shipped preset's full width and batch
+           32 on the same tree: `encode` on the card (the committed AE
+           weights, the posterior sampled) against the CPU on the same
+           batch's first ENCODE_CHECK clouds and the same noise, the card's
+           kNN picks replayed into the CPU run (ENCODE_TOL); then
+           `train_autoencoder` for a warm-up that writes a checkpoint and a
+           counted run resumed from it: ms per step, finite losses, exactly
+           AE_FPS_PER_STEP FPS launches a step and no fused launch; then a
+           profiled run: busy ms per step and the idle share
+  train_latent  the feature DDPM at the shipped preset's full width and
+           batch 32 over the committed AE (frozen): one step's card gradient
+           against the CPU module's on the same latent (the `train` phase's
+           gate); `train_latent_ddpm` warm-up, counted run (exactly one K1,
+           one K2 and LATENT_FPS_PER_STEP FPS launches a step) and profiled
+           run as for the autoencoder
 
 Then the nvidia-smi line, one JSON line of kernel figures, and the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
@@ -101,22 +116,27 @@ import torch
 from slide_tpu_torch import _build
 from slide_tpu_torch.models import fused_denoiser as fd
 from slide_tpu_torch.ops import fps as fps_mod
-from slide_tpu_torch.configs import keypoint_ddpm_config
+from slide_tpu_torch.configs import autoencoder_config, keypoint_ddpm_config, latent_ddpm_config
 from slide_tpu_torch.data import get_dataloader, write_synthetic_shapenet_psr
-from slide_tpu_torch.diffusion import calc_diffusion_hyperparams, diffusion_training_loss
-from slide_tpu_torch.models import ConditionalPointNet2
-from slide_tpu_torch.pipeline import build_stages, generate, with_fastdpm
+from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
+                                       diffusion_training_loss, latent_config_weights,
+                                       latent_train_loss)
+from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder
+from slide_tpu_torch.nn import neighborhood
+from slide_tpu_torch.ops import knn_points
+from slide_tpu_torch.pipeline import DEFAULT_CKPTS, build_stages, generate, with_fastdpm
 from slide_tpu_torch.sap import (DPSR, count_cells_and_faces, marching_tetrahedra_numpy,
                                  mesh_to_host, mirror_and_concat,
                                  network_output_to_dpsr_grid, point_rasterize)
 from slide_tpu_torch.train import driver as train_driver
 from slide_tpu_torch.train.checkpoint import find_max_iter
+from slide_tpu_torch.weights import load_flax_params, load_inference_params
 
 # the mesh gate, shared with the tests (numpy only)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from mesh_compare import MESH_NORMAL_ATOL, MESH_VERT_ATOL, mesh_difference  # noqa: E402
 
-faulthandler.dump_traceback_later(600, exit=True)
+faulthandler.dump_traceback_later(900, exit=True)
 
 BATCH = 16
 T_STEPS = 1000
@@ -159,6 +179,27 @@ DPSR_ATOL = 1e-5
 # (N, K, batch) of training's call (the keypoints of a 2048-point cloud and
 # its centroid)
 TRAIN_FPS = (2049, 16, 32)
+# (N, K) of the FPS calls of the encoder's four SA levels at batch 32
+ENCODER_FPS = [(2048, 1024), (1024, 256), (256, 64), (64, 32)]
+# the autoencoder and latent training runs (steps of batch 32)
+AE_WARMUP, AE_STEPS = 3, 20
+LAT_WARMUP, LAT_STEPS = 3, 20
+TASK_PROFILE_STEPS = 5
+# FPS launches a step, from the code: an AE step runs the keypoints (1), the
+# encoder's SA levels (4), the decode's (the keypoint level's trim, then
+# three SA levels and a trim at each decoder level: 9) and the per-level
+# targets (1); a latent step the keypoints and the frozen encoder's levels
+AE_FPS_PER_STEP = 1 + len(ENCODER_FPS) + len(DECODE_FPS) + 1
+LATENT_FPS_PER_STEP = 1 + len(ENCODER_FPS)
+# encode on the card against the CPU: the CPU re-encodes this many clouds of
+# the batch (the encoder at 2048 points runs ~1 s a cloud on the CPU)
+ENCODE_CHECK = 4
+# every element within ENCODE_TOL x max(1, max |cpu|), the card's kNN picks
+# replayed into the CPU run: fp32 rounding through the encoder's GroupNorms
+# of one channel; measured 1.12e-3 of 4.24 here (the committed AE, batch
+# 32's first four clouds) and 1.59e-3 of 3.24 in tests/test_torch_cuda.py
+# (batch 2), i.e. 2.6e-4 and 4.9e-4 of the features' size (H100 80GB HBM3)
+ENCODE_TOL = 2e-3
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -207,7 +248,9 @@ def bound(parts) -> tuple[float, str]:
 def phase_k3(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     per_shape, max_err = {}, 0
-    for n, k, b in sorted({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS}):
+    shapes = ({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS}
+              | {(n, k, TRAIN_BATCH) for n, k in ENCODER_FPS})
+    for n, k, b in sorted(shapes):
         xyz = torch.randn((b, n, 3), generator=gen, device=dev)
         starts = {"random": torch.randint(0, n, (b,), generator=gen, device=dev,
                                           dtype=torch.int32),
@@ -224,7 +267,7 @@ def phase_k3(dev) -> dict:
         ms = cuda_ms(lambda: fps_mod.fps_cuda(xyz, k, start), reps=20)
         plain_ms = cuda_ms(lambda: fps_mod.fps_plain(xyz, k, start), reps=2)
         parts = fps_bound_parts(b, n, k)
-        per_shape[(n, k)] = (ms, plain_ms, parts)
+        per_shape[(n, k, b)] = (ms, plain_ms, parts)
         bound_ms, bound_by = bound(parts)
         log("k3", n=n, k=k, batch=b, equal=True, threads=fps_mod.threads_for(n), ms=ms,
             plain_ms=plain_ms, bound_ms=bound_ms,
@@ -665,33 +708,32 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
     return res, worst
 
 
-def _train_config(root: str, exp: str) -> dict:
-    cfg = keypoint_ddpm_config("airplane", batch_size=TRAIN_BATCH)
+def _task_config(config: dict, root: str, exp: str) -> dict:
+    """A shipped training preset at batch 32 on the synthetic tree, its
+    experiment directory under `exp`, a loss logged every 5 steps."""
+    cfg = config
     cfg["shapenet_psr_dataset_config"]["data_dir"] = root
-    cfg["train_config"].update(root_directory=exp, iters_per_logging=50)
+    cfg["train_config"].update(root_directory=exp, iters_per_logging=5)
     return cfg
 
 
-def check_train_gradient(cfg: dict, dev) -> float:
+def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> float:
     """One step's gradients: the card's fused denoiser (K1 + K2) against the
-    module on the CPU, same weights, batch, keypoints, ts and z, per element
-    once the relu ties that K2 resolved otherwise than float64 are taken
-    off.  Those are found at the core: K2 relaunched on the inputs and the
-    cotangent the step gave it, against `fused_backward_reference`."""
-    pointnet = cfg["pointnet_config"]
+    module on the CPU, same weights, input `x` (the keypoints or the
+    latent), labels, ts and z, `loss_fn(net_fn, x, ts, z)`, per element once the
+    relu ties that K2 resolved otherwise than float64 are taken off.  Those
+    are found at the core: K2 relaunched on the inputs and the cotangent the
+    step gave it, against `fused_backward_reference`."""
     net = train_driver.init_params(ConditionalPointNet2(pointnet),
                                    torch.Generator().manual_seed(0))
     cpu_net = ConditionalPointNet2(pointnet)
     cpu_net.load_state_dict(net.state_dict())
     net = net.to(dev)
-    batch = next(iter(get_dataloader(cfg["shapenet_psr_dataset_config"], seed=0)))
-    points = torch.as_tensor(batch["points"], device=dev)
-    label = torch.as_tensor(batch["label"], dtype=torch.int64)
-    x = train_driver.sample_train_keypoints(points, cfg["shapenet_psr_dataset_config"])
+    b = x.shape[0]
+    label = label.cpu()
     gen = torch.Generator().manual_seed(1)
-    ts = torch.randint(0, 1000, (TRAIN_BATCH,), generator=gen)
+    ts = torch.randint(0, 1000, (b,), generator=gen)
     z = torch.randn(tuple(x.shape), generator=gen)
-    sched = calc_diffusion_hyperparams(1000, 1e-4, 0.02)
     apply = fd.make_fused_train_fn(pointnet, net, x.shape[1])
     core = {}
 
@@ -701,11 +743,9 @@ def check_train_gradient(cfg: dict, dev) -> float:
         out.register_hook(lambda g: core.update(g=g.detach().contiguous()))
         return out
 
-    loss = diffusion_training_loss(net_fn, x, calc_diffusion_hyperparams(1000, 1e-4, 0.02, dev),
-                                   ts=ts.to(dev), z=z.to(dev))
+    loss = loss_fn(net_fn, x, ts.to(dev), z.to(dev))
     loss.backward()
-    cpu_loss = diffusion_training_loss(lambda xt, t: cpu_net(xt, ts=t, label=label),
-                                       x.cpu(), sched, ts=ts, z=z)
+    cpu_loss = loss_fn(lambda xt, t: cpu_net(xt, ts=t, label=label), x.cpu(), ts, z)
     cpu_loss.backward()
 
     # the core's inputs again (under autograd, to carry a change of K2's
@@ -738,13 +778,20 @@ def check_train_gradient(cfg: dict, dev) -> float:
         if bad or not bool(torch.isfinite(raw).all()):
             where[name] = {"beyond": bad, "max_abs": float(err.max())}
         beyond += bad
-    log("train_gradient", loss=float(loss.detach()), cpu_loss=float(cpu_loss.detach()),
+    log(f"{phase}_gradient", loss=float(loss.detach()), cpu_loss=float(cpu_loss.detach()),
         max_abs_err=worst, beyond=beyond, beyond_before_ties=beyond_raw, ties=ties,
         core=core_errs)
     if where or not all(e["ok"] for e in core_errs.values()):
-        raise AssertionError(f"train: gradient differs from the CPU module's: {where}; "
+        raise AssertionError(f"{phase}: gradient differs from the CPU module's: {where}; "
                              f"K2 at the core: {core_errs}")
     return worst
+
+
+def _first_batch(cfg: dict, dev) -> dict:
+    batch = next(iter(get_dataloader(cfg["shapenet_psr_dataset_config"], seed=0)))
+    return {key: torch.as_tensor(batch[key], dtype=dtype, device=dev)
+            for key, dtype in (("points", torch.float32), ("normals", torch.float32),
+                               ("label", torch.int64))}
 
 
 def _device_us(evt) -> float:
@@ -760,85 +807,242 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_train(cfg: dict, done: int, ms_per_step: float) -> None:
-    """`PROFILE_STEPS` more steps of `train_position_ddpm` (resumed at
-    iteration `done`) under `torch.profiler`: the card's busy ms per step,
-    the idle share of the counted run's step of `ms_per_step`, and the
-    kernels and host operations that take the most time per step."""
+def profile_train(phase: str, train_fn, cfg: dict, done: int, steps: int,
+                  ms_per_step: float) -> None:
+    """`steps` more steps of `train_fn` (resumed at iteration `done`) under
+    `torch.profiler`: the card's busy ms per step, the idle share of the
+    counted run's step of `ms_per_step`, and the kernels and host operations
+    that take the most time per step."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        train_driver.train_position_ddpm(cfg, max_iters=done + PROFILE_STEPS, verbose=False)
+        train_fn(cfg, max_iters=done + steps, verbose=False)
         torch.cuda.synchronize()
-    n = PROFILE_STEPS
     events = prof.key_averages()
-    kernels = sorted(((e.key, _device_us(e) / 1e3 / n, e.count / n) for e in events
+    kernels = sorted(((e.key, _device_us(e) / 1e3 / steps, e.count / steps) for e in events
                       if _device_us(e) > 0), key=lambda r: -r[1])
-    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / n, e.count / n) for e in events
-                   if _device_us(e) == 0), key=lambda r: -r[1])
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / steps, e.count / steps)
+                   for e in events if _device_us(e) == 0), key=lambda r: -r[1])
     busy = sum(r[1] for r in kernels)
-    log("train_profile", steps=n, device_busy_ms=busy, idle_share=1.0 - busy / ms_per_step,
+    log(f"{phase}_profile", steps=steps, device_busy_ms=busy,
+        idle_share=1.0 - busy / ms_per_step,
         kernel_launches_per_step=sum(r[2] for r in kernels),
         top_kernels=[list(r) for r in kernels[:10]], top_host_ops=[list(r) for r in host[:12]])
     if busy <= 0:
-        raise AssertionError("train_profile: the profiler saw no kernel on the card")
+        raise AssertionError(f"{phase}_profile: the profiler saw no kernel on the card")
 
 
-def phase_train(dev) -> dict:
-    """Position-DDPM training at full width through `train_position_ddpm`:
-    a warm-up run that writes a checkpoint, a counted run resumed from it,
-    then a profiled run resumed from the counted run's last checkpoint."""
-    with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "shapenet_psr")
-        t0 = time.perf_counter()
-        write_synthetic_shapenet_psr(root, categories=("02691156",), models_per_split=16,
-                                     num_points=3000, shape_variety=True, with_psr=False)
-        cfg = _train_config(root, os.path.join(tmp, "exp"))
-        log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH,
-            models=16 * cfg["shapenet_psr_dataset_config"]["repeat_dataset"])
-        grad_err = check_train_gradient(cfg, dev)
+def run_task(phase: str, train_fn, cfg: dict, warmup: int, steps: int, per_step: dict,
+             profile_steps: int) -> dict:
+    """A training task through its entry point `train_fn(cfg, max_iters=)`:
+    a warm-up run that writes a checkpoint, a counted run resumed from it
+    (finite losses, the resume iteration, exactly `per_step` launches of
+    each kernel a step), then a profiled run resumed from the counted run's
+    last checkpoint."""
+    ckpt_dir = train_driver.experiment_dirs(cfg)[1]
+    t0 = time.perf_counter()
+    _, warm = train_fn(cfg, max_iters=warmup, verbose=False)
+    torch.cuda.synchronize()
+    saved = find_max_iter(ckpt_dir)
+    log(f"{phase}_warmup", steps=warmup, seconds=time.perf_counter() - t0, losses=warm,
+        checkpoint_iter=saved)
+    if saved != warmup - 1:
+        raise AssertionError(f"{phase}: warm-up saved iteration {saved}, expected "
+                             f"{warmup - 1}")
 
-        ckpt_dir = train_driver.experiment_dirs(cfg)[1]
-        t0 = time.perf_counter()
-        _, warm = train_driver.train_position_ddpm(cfg, max_iters=TRAIN_WARMUP, verbose=False)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, losses = train_fn(cfg, max_iters=warmup + steps, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    final = find_max_iter(ckpt_dir)
+    values = [l for _, l in losses]
+    finite = bool(np.isfinite(values).all()) and len(values) > 0
+    ms_per_step = 1e3 * seconds / steps
+    log(phase, batch=TRAIN_BATCH, steps=steps, resumed_from=saved, seconds=seconds,
+        ms_per_step=ms_per_step, first_loss=losses[0] if losses else None,
+        last_loss=losses[-1] if losses else None, warmup_first_loss=warm[0] if warm else None,
+        finite=finite, launches=launches, launches_per_step_expected=per_step,
+        final_checkpoint_iter=final)
+    if not finite:
+        raise AssertionError(f"{phase}: losses {losses}")
+    if state.step != warmup + steps or final != warmup + steps - 1:
+        raise AssertionError(f"{phase}: did not resume at iteration {warmup}: step "
+                             f"{state.step}, last checkpoint {final}")
+    for name, n in per_step.items():
+        if launches.get(name, 0) != n * steps:
+            raise AssertionError(f"{phase}: {launches.get(name, 0)} {name} launches in "
+                                 f"{steps} steps, expected {n} a step")
+    del state
+    profile_train(phase, train_fn, cfg, warmup + steps, profile_steps, ms_per_step)
+    return {"launches": launches, "seconds": seconds, "ms_per_step": ms_per_step}
+
+
+def phase_train(dev, root: str, tmp: str) -> dict:
+    """Position-DDPM training at full width through `train_position_ddpm`."""
+    cfg = _task_config(keypoint_ddpm_config("airplane", batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_kp"))
+    cfg["train_config"]["iters_per_logging"] = 50
+    batch = _first_batch(cfg, dev)
+    x = train_driver.sample_train_keypoints(batch["points"], cfg["shapenet_psr_dataset_config"])
+    grad_err = check_train_gradient(
+        "train", cfg["pointnet_config"], x, batch["label"],
+        lambda net_fn, xx, ts, z: diffusion_training_loss(
+            net_fn, xx, calc_diffusion_hyperparams(1000, 1e-4, 0.02, xx.device), ts=ts, z=z),
+        dev)
+    res = run_task("train", train_driver.train_position_ddpm, cfg, TRAIN_WARMUP, TRAIN_STEPS,
+                   {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1}, PROFILE_STEPS)
+    return {**res, "grad_err": grad_err}
+
+
+def _record_knn():
+    """Wrap the neighbourhood modules' kNN search so that it records each
+    call's (query, points, sqdists, idx) on the host; returns the list."""
+    calls, real = [], neighborhood.knn_points
+
+    def recording(query, points, k):
+        sqd, idx = real(query, points, k)
+        calls.append([t.cpu() for t in (query, points, sqd, idx)])
+        return sqd, idx
+
+    neighborhood.knn_points = recording
+    return calls
+
+
+def _replay_knn(calls, n: int) -> dict:
+    """Hand the first `n` clouds of the recorded searches to a CPU run.  Its
+    own search on the same points must give the same neighbour sets, or
+    sets that part at a tie (float64 distances of the points in one set and
+    not the other within 1e-6 of the cloud's squared scale); counted."""
+    it, seen = iter(calls), {"calls": 0, "ties": 0}
+
+    def replaying(query, points, k):
+        c_query, c_points, c_sqd, c_idx = (t[:n] for t in next(it))
+        if not (torch.equal(query, c_query) and torch.equal(points, c_points)):
+            raise AssertionError("encode: the CPU's kNN query differs from the card's")
+        _, idx = knn_points(query, points, k)
+        tol = 1e-6 * float(query.square().sum(-1).amax() + points.square().sum(-1).amax())
+        differ = (torch.sort(idx, -1)[0] != torch.sort(c_idx, -1)[0]).any(-1)
+        for b, m in differ.nonzero().tolist():
+            d64 = ((query[b, m].double() - points[b].double()) ** 2).sum(-1)
+            sym = list(set(idx[b, m].tolist()) ^ set(c_idx[b, m].tolist()))
+            if float(d64[sym].max() - d64[sym].min()) > tol:
+                raise AssertionError(f"encode: kNN sets part beyond a tie at ({b}, {m})")
+            seen["ties"] += 1
+        seen["calls"] += 1
+        return c_sqd, c_idx
+
+    neighborhood.knn_points = replaying
+    return seen
+
+
+def check_encode(cfg: dict, dev) -> float:
+    """`encode` of the committed AE on the card (a batch of 32, the
+    posterior sampled) against the CPU on the batch's first ENCODE_CHECK
+    clouds, the same keypoints and noise, the card's kNN picks replayed."""
+    ae = build_autoencoder(cfg["pointnet_config"])
+    load_flax_params(ae, load_inference_params(str(DEFAULT_CKPTS["ae"]), -1))
+    ae.eval()
+    cpu_ae = build_autoencoder(cfg["pointnet_config"])
+    cpu_ae.load_state_dict(ae.state_dict())
+    ae = ae.to(dev)
+    batch = _first_batch(cfg, dev)
+    normals = batch["normals"] / torch.linalg.vector_norm(batch["normals"], dim=-1,
+                                                          keepdim=True)
+    x = torch.cat([batch["points"], normals], dim=-1)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    kp = train_driver.sample_train_keypoints(batch["points"], cfg["shapenet_psr_dataset_config"],
+                                             gen)
+    noise_gen = torch.Generator().manual_seed(4)
+    noises = []
+
+    def noise_fn(shape):
+        noises.append(torch.randn(shape, generator=noise_gen))
+        return noises[-1].to(dev)
+
+    real = neighborhood.knn_points
+    try:
+        calls = _record_knn()
+        before = _build.launch_counts["fps"]
+        with torch.no_grad():
+            got = ae.encode(x, kp, label=batch["label"], noise_fn=noise_fn)
         torch.cuda.synchronize()
-        saved = find_max_iter(ckpt_dir)
-        log("train_warmup", steps=TRAIN_WARMUP, seconds=time.perf_counter() - t0,
-            losses=warm, checkpoint_iter=saved)
-        if saved != TRAIN_WARMUP - 1:
-            raise AssertionError(f"train: warm-up saved iteration {saved}, expected "
-                                 f"{TRAIN_WARMUP - 1}")
-
-        _build.launch_counts.clear()
+        fps_launches = _build.launch_counts["fps"] - before
+        n = ENCODE_CHECK
+        seen = _replay_knn(calls, n)
+        drawn = iter(noises)
         t0 = time.perf_counter()
-        state, losses = train_driver.train_position_ddpm(
-            cfg, max_iters=TRAIN_WARMUP + TRAIN_STEPS, verbose=False)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = dict(_build.launch_counts)
-        final = find_max_iter(ckpt_dir)
-        values = [l for _, l in losses]
-        finite = bool(np.isfinite(values).all()) and len(values) > 0
-        log("train", batch=TRAIN_BATCH, steps=TRAIN_STEPS, resumed_from=saved,
-            seconds=seconds, ms_per_step=1e3 * seconds / TRAIN_STEPS,
-            first_loss=losses[0] if losses else None,
-            last_loss=losses[-1] if losses else None, warmup_first_loss=warm[0],
-            finite=finite, launches=launches, final_checkpoint_iter=final)
-        if not finite:
-            raise AssertionError(f"train: losses {losses}")
-        if state.step != TRAIN_WARMUP + TRAIN_STEPS or final != TRAIN_WARMUP + TRAIN_STEPS - 1:
-            raise AssertionError(f"train: did not resume at iteration {TRAIN_WARMUP}: step "
-                                 f"{state.step}, last checkpoint {final}")
-        for name, want in (("fused_denoiser_bwd", TRAIN_STEPS),
-                           ("fused_denoiser", TRAIN_STEPS)):
-            if launches.get(name, 0) != want:
-                raise AssertionError(f"train: {launches.get(name, 0)} {name} launches in "
-                                     f"{TRAIN_STEPS} steps, expected {want}")
-        if launches.get("fps", 0) < TRAIN_STEPS:
-            raise AssertionError(f"train: {launches.get('fps', 0)} FPS launches in "
-                                 f"{TRAIN_STEPS} steps")
-        del state
-        profile_train(cfg, TRAIN_WARMUP + TRAIN_STEPS, 1e3 * seconds / TRAIN_STEPS)
-    return {"launches": launches, "seconds": seconds, "grad_err": grad_err}
+        with torch.no_grad():
+            want = cpu_ae.encode(x[:n].cpu(), kp[:n].cpu(), label=batch["label"][:n].cpu(),
+                                 noise_fn=lambda shape: next(drawn)[:n])
+        cpu_s = time.perf_counter() - t0
+    finally:
+        neighborhood.knn_points = real
+    err = float((got[:n].cpu() - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    log("train_ae_encode", batch=TRAIN_BATCH, shape=list(got.shape), checked=n,
+        max_abs_err=err, max_abs=float(want.abs().max()), tol=ENCODE_TOL * scale,
+        knn_calls=seen["calls"], knn_ties=seen["ties"], fps_launches=fps_launches,
+        finite=bool(torch.isfinite(got).all()), cpu_seconds=cpu_s)
+    if seen["calls"] != len(calls) or fps_launches != len(ENCODER_FPS):
+        raise AssertionError(f"encode: {seen['calls']} of {len(calls)} kNN calls replayed, "
+                             f"{fps_launches} FPS launches")
+    if not (err <= ENCODE_TOL * scale and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"encode: card and CPU differ by {err} (max {scale})")
+    return err
+
+
+def phase_train_ae(dev, root: str, tmp: str) -> dict:
+    """The point autoencoder at full width through `train_autoencoder`."""
+    cfg = _task_config(autoencoder_config("airplane", batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_ae"))
+    encode_err = check_encode(cfg, dev)
+    res = run_task("train_ae", train_driver.train_autoencoder, cfg, AE_WARMUP, AE_STEPS,
+                   {"fps": AE_FPS_PER_STEP, "fused_denoiser": 0, "fused_denoiser_bwd": 0},
+                   TASK_PROFILE_STEPS)
+    return {**res, "encode_err": encode_err}
+
+
+def phase_train_latent(dev, root: str, tmp: str) -> dict:
+    """The feature DDPM at full width through `train_latent_ddpm`, the
+    committed AE frozen: the gradient check on a latent the frozen AE
+    encoded on the card, then the counted run."""
+    cfg = _task_config(latent_ddpm_config("airplane", batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_latent"))
+    ae_params = load_inference_params(str(DEFAULT_CKPTS["ae"]), -1)
+    ae = build_autoencoder(cfg["autoencoder_config"]["pointnet_config"])
+    load_flax_params(ae, ae_params)
+    ae = ae.to(dev).eval()
+    batch = _first_batch(cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    trainset = cfg["shapenet_psr_dataset_config"]
+    kp = train_driver.sample_train_keypoints(batch["points"], trainset)
+    x = torch.cat([batch["points"], batch["normals"]], dim=-1)
+    with torch.no_grad():
+        feat = ae.encode(x, kp, label=batch["label"],
+                         noise_fn=lambda shape: torch.randn(shape, generator=gen, device=dev))
+    latent = torch.cat([kp, feat], dim=-1)
+    del ae
+    sdc = cfg["standard_diffusion_config"]
+    kp_w, feat_w = latent_config_weights(sdc)
+
+    def loss_fn(net_fn, lat, ts, z):
+        return latent_train_loss(
+            net_fn, lambda *_: lat[..., 3:], None, lat[..., :3], None,
+            X0Schedule.from_config(sdc, lat.device), keypoint_conditional=True,
+            keypoint_position_loss_weight=kp_w, feature_loss_weight=feat_w,
+            ts=ts, z=z).mean()
+
+    grad_err = check_train_gradient("train_latent", cfg["pointnet_config"], latent,
+                                    batch["label"], loss_fn, dev)
+
+    def train_fn(c, **kw):
+        return train_driver.train_latent_ddpm(c, ae_params, **kw)
+
+    res = run_task("train_latent", train_fn, cfg, LAT_WARMUP, LAT_STEPS,
+                   {"fps": LATENT_FPS_PER_STEP, "fused_denoiser": 1, "fused_denoiser_bwd": 1},
+                   TASK_PROFILE_STEPS)
+    return {**res, "grad_err": grad_err}
 
 
 def main():
@@ -883,13 +1087,28 @@ def main():
     run_slice("unfused_slice", unfused, 0, want_fused=0)
     del unfused
 
-    train = phase_train(dev)
+    # the three training tasks on one synthetic airplane tree with normals
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "shapenet_psr")
+        t0 = time.perf_counter()
+        write_synthetic_shapenet_psr(root, categories=("02691156",), models_per_split=16,
+                                     num_points=3000, shape_variety=True, with_psr=False)
+        log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
+        tasks = {"kp": phase_train(dev, root, tmp), "ae": phase_train_ae(dev, root, tmp),
+                 "latent": phase_train_latent(dev, root, tmp)}
+
+    def per_task(name):
+        return {task: res["launches"].get(name, 0) for task, res in tasks.items()}
+
+    def fps_sum(calls, b):
+        """ms, plain ms and bound of the FPS calls `calls` at batch b, summed."""
+        rows = [per_shape[(n, k, b)] for n, k in calls]
+        return (sum(r[0] for r in rows), sum(r[1] for r in rows),
+                bound([sum(r[2][i] for r in rows) for i in range(2)]))
 
     # FPS: one pass's worth of calls (the decode's and the SAP net's), summed
-    ms = sum(per_shape[s][0] for s in PASS_FPS)
-    plain_ms = sum(per_shape[s][1] for s in PASS_FPS)
-    bound_ms, bound_by = bound([sum(per_shape[s][2][i] for s in PASS_FPS)
-                                for i in range(2)])
+    ms, plain_ms, (bound_ms, bound_by) = fps_sum(PASS_FPS, BATCH)
+    enc_ms, enc_plain_ms, (enc_bound_ms, enc_bound_by) = fps_sum(ENCODER_FPS, TRAIN_BATCH)
     # K1: per launch of the main path, which runs the kp and latent nets
     # 1000 times each at batch 16: the mean of the two
     nets = [k1[(name, BATCH)] for name in ("kp", "lat")]
@@ -903,12 +1122,12 @@ def main():
         "replaces": "slide_tpu/ops/pallas/fps.py:98",
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "launches_train": train["launches"].get("fps", 0),
-        "decode_ms": sum(per_shape[s][0] for s in DECODE_FPS),
-        "sap_ms": sum(per_shape[s][0] for s in SAP_FPS),
-        "sap_plain_ms": sum(per_shape[s][1] for s in SAP_FPS),
-        "sap_bound_ms": bound([sum(per_shape[s][2][i] for s in SAP_FPS)
-                               for i in range(2)])[0]}, {
+        "library_ms": None, "launches_train": per_task("fps"),
+        "decode_ms": fps_sum(DECODE_FPS, BATCH)[0],
+        "sap_ms": fps_sum(SAP_FPS, BATCH)[0], "sap_plain_ms": fps_sum(SAP_FPS, BATCH)[1],
+        "sap_bound_ms": fps_sum(SAP_FPS, BATCH)[2][0],
+        "encoder_ms": enc_ms, "encoder_plain_ms": enc_plain_ms,
+        "encoder_bound_ms": enc_bound_ms, "encoder_bound_by": enc_bound_by}, {
         "name": "fused_denoiser", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
@@ -919,14 +1138,14 @@ def main():
         "per_net": {name: {"ms": r[0], "plain_ms": r[1], "module_ms": r[2],
                            "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1]}
                     for name, r in zip(("kp", "lat"), nets)},
-        "launches_train": train["launches"].get("fused_denoiser", 0)}, {
+        "launches_train": per_task("fused_denoiser")}, {
         "name": "fused_denoiser_bwd", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser_bwd.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:621",
-        "launches": train["launches"].get("fused_denoiser_bwd", 0),
+        "launches": tasks["kp"]["launches"].get("fused_denoiser_bwd", 0),
         "max_abs_err": k2_err, "ms": k2_main[0], "plain_ms": k2_main[1],
         "bound_ms": bound(k2_main[2])[0], "bound_by": bound(k2_main[2])[1],
-        "library_ms": None,
+        "library_ms": None, "launches_train": per_task("fused_denoiser_bwd"),
         "per_net": {f"{name}_b{b}": {"ms": r[0], "plain_ms": r[1],
                                      "bound_ms": bound(r[2])[0], "bound_by": bound(r[2])[1]}
                     for (name, b), r in k2.items()}}]}), flush=True)

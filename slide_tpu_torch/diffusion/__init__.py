@@ -1,11 +1,14 @@
-"""DDPM samplers and the eps training loss (counterpart: `slide_tpu/diffusion/`)."""
+"""DDPM samplers and the eps and latent training losses (counterpart:
+`slide_tpu/diffusion/`)."""
 
 from slide_tpu_torch.diffusion.eps import (DiffusionSchedule,
                                            calc_diffusion_hyperparams,
                                            diffusion_sampling, diffusion_training_loss)
 from slide_tpu_torch.diffusion.fastdpm import (diffusion_config_of, fast_sampling,
                                                fast_x0_denoise)
-from slide_tpu_torch.diffusion.latent import latent_denoise_and_reconstruct
+from slide_tpu_torch.diffusion.latent import (latent_config_weights,
+                                              latent_denoise_and_reconstruct,
+                                              latent_encode, latent_train_loss)
 from slide_tpu_torch.diffusion.x0 import (X0Schedule, denoising_step,
                                           get_beta_schedule, predict_xstart,
                                           x0_denoise)
@@ -13,5 +16,6 @@ from slide_tpu_torch.diffusion.x0 import (X0Schedule, denoising_step,
 __all__ = ["DiffusionSchedule", "calc_diffusion_hyperparams", "diffusion_sampling",
            "diffusion_training_loss",
            "diffusion_config_of", "fast_sampling", "fast_x0_denoise",
-           "latent_denoise_and_reconstruct", "X0Schedule", "denoising_step",
+           "latent_config_weights", "latent_denoise_and_reconstruct", "latent_encode",
+           "latent_train_loss", "X0Schedule", "denoising_step",
            "get_beta_schedule", "predict_xstart", "x0_denoise"]

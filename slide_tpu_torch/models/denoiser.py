@@ -5,7 +5,9 @@ levels 2-3.
 
 An SA (set abstraction) tower and a KnnFP (feature propagation) tower run
 over the input cloud, with timestep and class embeddings injected into every
-block's MLP.  Config keys and channel arithmetic are the JAX package's.  The
+block's MLP.  Config keys and channel arithmetic are the JAX package's; the
+SA tower's builder, `build_sa_stack`, is shared with the autoencoder's
+`PointNetEncoder`, which adds a global feature as the condition.  The
 condition-cloud branch (local / global condition features), the
 concatenated-partial variant, positional encoding and global attention are
 turned on by no preset of the generation path and are not ported: such a
@@ -59,6 +61,44 @@ def _check_supported(hp: Mapping) -> None:
                                   f"uses them): {on}")
 
 
+def build_sa_stack(owner: nn.Module, hp: Mapping, in_fea_dim: int, *,
+                   t_emb_dim: Optional[int] = None, class_dim: Optional[int] = None,
+                   global_dim: Optional[int] = None) -> list:
+    """The SA levels of `hp["architecture"]`, registered on `owner` as
+    `sa_modules_<i>` (counterpart: `slide_tpu/models/denoiser.py::_build_sa_stack`).
+    `t_emb_dim` / `class_dim` are the widths of the timestep and class
+    embeddings, None when not injected.  With a global feature (`global_dim`)
+    it is the condition and the class embedding the second condition."""
+    arch = hp["architecture"]
+    neighbor_def = _as_list(arch["neighbor_definition"], len(arch["radius"]))
+    if global_dim is not None:
+        cond = dict(include_condition=True, condition_dim=global_dim,
+                    include_second_condition=class_dim is not None,
+                    second_condition_dim=class_dim)
+    else:
+        cond = dict(include_condition=class_dim is not None, condition_dim=class_dim)
+    fd = arch["feature_dim"]
+    mods = []
+    for i in range(len(arch["npoint"])):
+        spec = [fd[i]] * arch["mlp_depth"] + [fd[i + 1]]
+        first_conv = bool(hp["bn_first"]) if i == 0 else False
+        if i == 0 and not first_conv:
+            spec[0] = in_fea_dim
+        sa = SAModule(arch["npoint"][i], spec, arch["nsample"][i], radius=arch["radius"][i],
+                      neighbor_def=neighbor_def[i], use_xyz=hp["model.use_xyz"],
+                      include_abs_coordinate=hp["include_abs_coordinate"],
+                      include_center_coordinate=hp.get("include_center_coordinate", False),
+                      include_t=t_emb_dim is not None, bn=hp.get("bn", True),
+                      bn_first=hp["bn_first"], bias=hp["bias"], first_conv=first_conv,
+                      first_conv_in_channel=in_fea_dim, res_connect=hp["res_connect"],
+                      activation=hp.get("activation", "relu"),
+                      attention_setting=hp.get("attention_setting"), t_emb_dim=t_emb_dim,
+                      **cond)
+        owner.add_module(f"sa_modules_{i}", sa)
+        mods.append(sa)
+    return mods
+
+
 class ConditionalPointNet2(nn.Module):
     """`config` is the reference's `pointnet_config` dict."""
 
@@ -102,18 +142,8 @@ class ConditionalPointNet2(nn.Module):
                         res_connect=hp["res_connect"], activation=activation,
                         t_emb_dim=t_emb_dim, condition_dim=cond_dim)
 
-        self.sa_modules = []
-        for i in range(len(arch["npoint"])):
-            spec = [fd[i]] * arch["mlp_depth"] + [fd[i + 1]]
-            first_conv = bool(hp["bn_first"]) if i == 0 else False
-            if i == 0 and not first_conv:
-                spec[0] = in_fea_dim
-            sa = SAModule(arch["npoint"][i], spec, arch["nsample"][i],
-                          radius=arch["radius"][i], neighbor_def=neighbor_def[i],
-                          first_conv=first_conv, first_conv_in_channel=in_fea_dim,
-                          attention_setting=attention_setting, **coord_kw, **block_kw)
-            self.add_module(f"sa_modules_{i}", sa)
-            self.sa_modules.append(sa)
+        self.sa_modules = build_sa_stack(self, hp, in_fea_dim, t_emb_dim=t_emb_dim,
+                                         class_dim=cond_dim)
 
         self.fp_modules = []
         depth = arch["decoder_mlp_depth"]

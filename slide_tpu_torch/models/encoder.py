@@ -1,0 +1,90 @@
+"""The SA-only PointNet++ feature extractor (counterpart:
+`slide_tpu/models/encoder.py::PointNetEncoder`): the autoencoder's encoder
+and the backbone of its keypoint level.
+
+It returns (last level's features, per-level xyz, per-level features).  With
+`transform_output` the original computes a 1x1 conv and then discards it,
+so the conv exists here only as a parameter, for checkpoints that hold it,
+and never runs.  Positional encoding and global attention, which no
+autoencoder preset turns on, raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import torch
+from torch import nn
+
+from slide_tpu_torch.models.denoiser import build_sa_stack
+from slide_tpu_torch.nn.layers import TimestepEmbedder
+from slide_tpu_torch.nn.pnet import PNet2Stage
+
+
+class PointNetEncoder(nn.Module):
+    """`config` is the reference's encoder `pointnet_config` dict."""
+
+    def __init__(self, config: Mapping[str, Any]):
+        super().__init__()
+        hp = config
+        unsupported = [k for k in ("use_position_encoding", "record_neighbor_stats")
+                       if hp.get(k, False)]
+        if (hp.get("global_attention_setting") or {}).get("use_global_attention_module"):
+            unsupported.append("global_attention_setting")
+        if unsupported:
+            raise NotImplementedError(f"not ported (no autoencoder preset uses them): "
+                                      f"{unsupported}")
+        self.include_t = hp["include_t"]
+        self.include_class_condition = hp.get("include_class_condition", False)
+        self.include_global_feature = hp.get("include_global_feature", False)
+        self.attach_position = hp["attach_position_to_input_feature"]
+        self.pooling = hp.get("pooling", "max")
+
+        in_fea_dim = hp["in_fea_dim"] + (3 if self.attach_position else 0)
+        self.in_fea_dim_full = in_fea_dim
+        t_emb_dim = class_dim = global_dim = None
+        if self.include_class_condition:
+            self.class_emb = nn.Embedding(hp["num_class"], hp["class_condition_dim"])
+            class_dim = hp["class_condition_dim"]
+        if self.include_t:
+            self.t_embedder = TimestepEmbedder(hp["t_dim"])
+            t_emb_dim = 4 * hp["t_dim"]
+        if self.include_global_feature:
+            mlp1, mlp2 = (list(a) for a in hp["pnet_global_feature_architecture"])
+            # its input width is forced to in_fea_dim, as the original does
+            mlp1[0] = in_fea_dim
+            global_dim = mlp2[-1]
+            self.global_pnet = PNet2Stage(
+                mlp1, mlp2, bn=hp.get("bn", True),
+                remove_last_activation=hp.get("global_feature_remove_last_activation", True))
+        self.sa_modules = build_sa_stack(self, hp, in_fea_dim, t_emb_dim=t_emb_dim,
+                                         class_dim=class_dim, global_dim=global_dim)
+        if hp.get("transform_output", False):
+            self.head_conv = nn.Linear(hp["architecture"]["feature_dim"][-1], hp["out_dim"])
+
+    def forward(self, pointcloud: torch.Tensor, ts: Optional[torch.Tensor] = None,
+                label: Optional[torch.Tensor] = None):
+        """(B, N, 3 + in_fea_dim) -> (features (B, npoint[-1], feature_dim[-1]),
+        [xyz per level], [features per level])."""
+        pc = pointcloud
+        if self.attach_position:
+            pc = torch.cat([pc, pc[..., :3]], dim=-1)
+        xyz = pc[..., :3]
+        features = pc[..., 3:] if pc.shape[-1] > 3 else None
+        t_emb = self.t_embedder(ts) if (ts is not None and self.include_t) else None
+        class_emb = (self.class_emb(label.long())
+                     if (label is not None and self.include_class_condition) else None)
+        if self.include_global_feature:
+            # [xyz, raw features]: the attached copy of xyz is the leading xyz
+            raw_dim = self.in_fea_dim_full - 3 if self.attach_position else self.in_fea_dim_full
+            cond, second = self.global_pnet(pc[..., :3 + raw_dim]), class_emb
+        else:
+            cond, second = class_emb, None
+
+        l_xyz, l_features = [xyz], [features]
+        for sa in self.sa_modules:
+            u, f = sa(l_xyz[-1], l_features[-1], t_emb=t_emb, condition_emb=cond,
+                      second_condition_emb=second, pooling=self.pooling)
+            l_xyz.append(u)
+            l_features.append(f)
+        return l_features[-1], l_xyz, l_features

@@ -3,11 +3,14 @@
 
   point_upsample        coarse points + per-point displacement grids
   PointUpsampleDecoder  feature extractor + cross-level FeatureMapModule +
-                        fc split head + FPS trim
+                        fc split head + FPS trim, with optional VAE
+                        regularisation of the features
   KeypointDecoder       cascade of PointUpsampleDecoders
 
 FPS trims start at `start_fn(batch, n)` when a caller gives one (the JAX
-package draws these from its 'fps' rng stream), else at index 0.
+package draws these from its 'fps' rng stream), else at index 0.  The
+posterior's standard-normal noise comes from `noise_fn(shape)` (the JAX
+package's 'gaussian' stream).
 """
 
 from __future__ import annotations
@@ -19,10 +22,13 @@ import torch
 from torch import nn
 
 from slide_tpu_torch.models.denoiser import ConditionalPointNet2
+from slide_tpu_torch.models.encoder import PointNetEncoder
+from slide_tpu_torch.nn.distributions import DiagonalGaussian
 from slide_tpu_torch.nn.modules import FeatureMapModule
 from slide_tpu_torch.ops import furthest_point_sample, gather_points
 
 StartFn = Callable[[int, int], torch.Tensor]
+NoiseFn = Callable[[tuple], torch.Tensor]
 
 
 def point_upsample(coarse: torch.Tensor, displacement: torch.Tensor,
@@ -76,24 +82,36 @@ def decoder_feature_out_dim(level_config: Mapping) -> int:
 
 class PointUpsampleDecoder(nn.Module):
     """One decoder level.  `config` is the level's pointnet_config, `in_dim`
-    the previous level's feature width.  `upsample_only` builds just the fc
-    head and trim, which is all decode runs of the keypoint level; its
-    PointNet feature extractor runs only in encode, a later slice."""
+    the previous level's feature width.  The feature extractor is a
+    `PointNetEncoder` when the config has no "decoder_feature_dim" (the
+    keypoint level), else a `ConditionalPointNet2`.  With
+    `apply_kl_regularization` the extractor and the mapper give twice their
+    widths, read as a diagonal Gaussian's mean | logvar.  `upsample_only`
+    builds just the fc head and trim, which is all decode runs of the
+    keypoint level."""
 
     def __init__(self, config: Mapping[str, Any], in_dim: int,
-                 upsample_only: bool = False):
+                 upsample_only: bool = False, apply_kl_regularization: bool = False):
         super().__init__()
         hp = config
         arch = hp["architecture"]
         self.upsample_only = upsample_only
+        self.apply_kl_regularization = apply_kl_regularization
+        self.is_condition_net = "decoder_feature_dim" in arch
         if not upsample_only:
-            if "decoder_feature_dim" not in arch:
-                raise NotImplementedError("a PointNet-encoder level runs only in "
-                                          "encode, which is not ported")
-            self.feature_extractor = ConditionalPointNet2(hp)
+            # the extractor's output width, doubled for mean | logvar with KL
+            kl = 2 if apply_kl_regularization else 1
+            key, at = ("decoder_feature_dim", 0) if self.is_condition_net \
+                else ("feature_dim", -1)
+            widths = list(arch[key])
+            query_dim = widths[at]
+            widths[at] *= kl
+            cfg = dict(hp, architecture=dict(arch, **{key: widths}))
+            self.feature_extractor = (ConditionalPointNet2 if self.is_condition_net
+                                      else PointNetEncoder)(cfg)
             fm = hp["feature_mapper_setting"]
             self.feature_mapper = FeatureMapModule(
-                mlp_spec=[in_dim] + [fm["out_dim"]] * fm["mlp_depth"],
+                mlp_spec=[in_dim] + [fm["out_dim"] * kl] * fm["mlp_depth"],
                 k=fm["nsample"], radius=fm["radius"],
                 neighbor_def=fm["neighbor_definition"], use_xyz=hp["model.use_xyz"],
                 include_abs_coordinate=hp["include_abs_coordinate"],
@@ -101,8 +119,7 @@ class PointUpsampleDecoder(nn.Module):
                 bn=hp["bn"], bn_first=hp["bn_first"], bias=hp["bias"],
                 res_connect=hp["res_connect"], first_conv=False,
                 activation=hp.get("activation", "relu"),
-                attention_setting=hp["attention_setting"],
-                query_feature_dim=arch["decoder_feature_dim"][0])
+                attention_setting=hp["attention_setting"], query_feature_dim=query_dim)
         self.upsampling_setting = hp["upsampling_setting"]
         self.point_upsample_factor = upsample_output_multiplier(self.upsampling_setting)
         self.out_dim = hp["out_dim"]
@@ -112,16 +129,38 @@ class PointUpsampleDecoder(nn.Module):
             decoder_feature_out_dim(hp) + self.in_position_and_normal_dim,
             self.out_dim * self.point_upsample_factor)
 
-    def propagate_feature(self, xyz, features, new_xyz, label=None):
+    def propagate_feature(self, xyz, features, new_xyz, label=None,
+                          sample_posterior: bool = True,
+                          noise_fn: Optional[NoiseFn] = None):
         """Features at new_xyz from the extractor, features of the previous
-        level mapped onto new_xyz, concatenated."""
+        level mapped onto new_xyz, concatenated.  With KL regularisation both
+        are sampled from their posteriors (their modes when
+        `sample_posterior` is off; `noise_fn(shape)` gives the standard-normal
+        noise, the extractor's first).  Returns (features, KL (B,) or None)."""
         if self.upsample_only:
             raise NotImplementedError("propagate_feature needs the level's "
                                       "feature extractor")
         out = self.feature_extractor(new_xyz, label=label)
+        if not self.is_condition_net:
+            out = out[0]
+        if not self.apply_kl_regularization:
+            mapped = self.feature_mapper(xyz, features, new_xyz[..., :3],
+                                         features_at_new_xyz=out, subset=False)
+            return torch.cat([out, mapped], dim=-1), None
+        out, out_post = self._sample(out, sample_posterior, noise_fn)
         mapped = self.feature_mapper(xyz, features, new_xyz[..., :3],
                                      features_at_new_xyz=out, subset=False)
-        return torch.cat([out, mapped], dim=-1)
+        mapped, mapped_post = self._sample(mapped, sample_posterior, noise_fn)
+        return torch.cat([out, mapped], dim=-1), out_post.kl() + mapped_post.kl()
+
+    @staticmethod
+    def _sample(parameters, sample_posterior: bool, noise_fn: Optional[NoiseFn]):
+        posterior = DiagonalGaussian.from_parameters(parameters)
+        if not sample_posterior:
+            return posterior.mode(), posterior
+        if noise_fn is None:
+            raise ValueError("sampling the posterior needs a noise_fn")
+        return posterior.sample(noise_fn(tuple(posterior.mean.shape))), posterior
 
     def upsample_points(self, final_feature, new_xyz,
                         start_fn: Optional[StartFn] = None):
@@ -150,9 +189,13 @@ class PointUpsampleDecoder(nn.Module):
         return up
 
     def forward(self, xyz, features, new_xyz, label=None,
-                start_fn: Optional[StartFn] = None):
-        final_feature = self.propagate_feature(xyz, features, new_xyz, label=label)
-        return final_feature, self.upsample_points(final_feature, new_xyz, start_fn)
+                start_fn: Optional[StartFn] = None, sample_posterior: bool = True,
+                noise_fn: Optional[NoiseFn] = None):
+        """(features, upsampled points, KL or None)."""
+        final_feature, kl = self.propagate_feature(xyz, features, new_xyz, label=label,
+                                                   sample_posterior=sample_posterior,
+                                                   noise_fn=noise_fn)
+        return final_feature, self.upsample_points(final_feature, new_xyz, start_fn), kl
 
 
 class KeypointDecoder(nn.Module):
@@ -173,9 +216,9 @@ class KeypointDecoder(nn.Module):
         l_xyzs = [xyz0, xyz1]
         l_features = [features0]
         for i, decoder in enumerate(self.decoders):
-            new_feature, new_xyz = decoder(l_xyzs[i][..., :3], l_features[i],
-                                           l_xyzs[i + 1], label=label,
-                                           start_fn=start_fn)
+            new_feature, new_xyz, _ = decoder(l_xyzs[i][..., :3], l_features[i],
+                                              l_xyzs[i + 1], label=label,
+                                              start_fn=start_fn)
             l_xyzs.append(new_xyz)
             l_features.append(new_feature)
         return l_xyzs

@@ -1,6 +1,7 @@
 """Diagonal Gaussian posterior (counterpart: `slide_tpu/nn/distributions.py`),
-channels-last: parameters (..., 2C) split into mean | logvar.  Decode reads
-no posterior; the autoencoder's encode, a later slice, samples from it."""
+channels-last: parameters (..., 2C) split into mean | logvar.  The
+autoencoder's keypoint level samples its features from it (encode and the
+training round trip) and adds its KL to the loss; decode reads none."""
 
 from __future__ import annotations
 

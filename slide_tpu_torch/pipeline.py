@@ -190,7 +190,7 @@ def build_stages(batch: int, t_steps: int = 1000, ckpts: Optional[Mapping] = Non
     load_flax_params(kp_net, _params(ckpts["kp"], ema_idx))
     lat_net = ConditionalPointNet2(lat_cfg["pointnet_config"])
     load_flax_params(lat_net, _params(ckpts["lat"], ema_idx))
-    ae = build_autoencoder(ae_cfg["pointnet_config"])
+    ae = build_autoencoder(ae_cfg["pointnet_config"], decode_only=True)
     load_flax_params(ae, decode_params(_params(ckpts["ae"], -1)))
     sap_net = ConditionalPointNet2(sap_cfg["pointnet_config"])
     load_flax_params(sap_net, _params(ckpts["sap"], -1))

@@ -14,6 +14,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "slide_tpu", "yaml")
 # PyYAML or JAX
 TRAINING = ("train/driver.py", "train/checkpoint.py", "train/ema.py",
             "data/synthetic.py", "data/shapenet_psr.py", "data/loader.py")
+# the autoencoder's modules, which copy JAX-package modules that import JAX
+AE = ("nn/pnet.py", "models/encoder.py", "ops/chamfer.py")
 # the mesh stages' modules, which copy JAX-package modules that import JAX
 SAP = ("sap/__init__.py", "sap/dpsr.py", "sap/mirror.py", "sap/refine.py",
        "sap/marching.py", "sap/mesh_sampling.py", "sap/marching_gpu.py")
@@ -33,7 +35,7 @@ def _imported(path: Path):
 
 def test_the_port_has_files():
     assert len(FILES) > 15
-    for rel in TRAINING + SAP:
+    for rel in TRAINING + AE + SAP:
         assert REPO / "slide_tpu_torch" / rel in FILES
 
 

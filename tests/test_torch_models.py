@@ -123,7 +123,7 @@ def test_autoencoder_decode_small(monkeypatch, random_starts):
     assert any(calls[i][1].any() for i in TRIM_CALLS) == random_starts
 
     replay = replay_fps_in_port(monkeypatch, calls, DECODE_ATOL)
-    tae = tm.build_autoencoder(cfg)
+    tae = tm.build_autoencoder(cfg, decode_only=True)
     load_flax_params(tae, params)   # decode's params are exactly the port's
     with torch.no_grad():
         got = tae.decode(torch.as_tensor(kp), torch.as_tensor(feat),
@@ -187,6 +187,6 @@ def test_real_nets_from_committed_checkpoints(name, ckpt, width):
 
 
 def test_real_autoencoder_decode_loads_strictly():
-    ae = tm.build_autoencoder(autoencoder_config()["pointnet_config"])
+    ae = tm.build_autoencoder(autoencoder_config()["pointnet_config"], decode_only=True)
     load_flax_params(ae, tm.decode_params(load_inference_params(str(AE_CKPT))))
     assert ae.decoder.decoders_0.fc_layer.weight.shape == (48, 390)

@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from slide_tpu_torch.weights import load_flax_params, module_to_flax
+from slide_tpu_torch.weights import flax_leaves, load_flax_params, module_to_flax
 
 
 def perturb(params, seed: int, scale: float = 0.1):
@@ -77,13 +77,16 @@ TRIM_CALLS = (0, 4, 8)
 
 def small_ae_config():
     """The airplane autoencoder at narrow widths (latent width 16) and few
-    points: 16 keypoints -> 64 -> 128 -> 200.  The displacement scales grow
+    points: an encoder of four SA levels to 64, 32, 16, 8 centers, then
+    16 keypoints -> 64 -> 128 -> 200.  The displacement scales grow
     to 0.5: at the shipped 0.03 / 0.003 / 0.001 the split points sit so close
     that their squared distances (||x||^2 - 2<x, y> + ||y||^2 in fp32, in
     either framework) are rounding noise, and neighbour order within a
     cluster is decided by the order of the sums."""
     from slide_tpu_torch.configs import autoencoder_config
     cfg = copy.deepcopy(autoencoder_config()["pointnet_config"])
+    cfg["encoder_config"]["architecture"].update(npoint=[64, 32, 16, 8], nsample=[8, 8, 8, 4],
+                                                 feature_dim=[8, 16, 16, 32, 32])
     l1, l2, l3 = cfg["decoder_config_list"]
     l1["architecture"]["feature_dim"] = [8, 8, 8]
     l1["feature_mapper_setting"]["out_dim"] = 8
@@ -96,6 +99,36 @@ def small_ae_config():
         lvl["feature_mapper_setting"].update(out_dim=16, nsample=4)
         lvl["upsampling_setting"].update(point_upsample_factor=ups,
                                          num_output_points=n_out, output_scale_factor=0.5)
+    return cfg
+
+
+def train_ae_config():
+    """A small autoencoder for the round trip and its gradient: an encoder
+    of two SA levels (to 32 and 8 centers), `small_ae_config`'s keypoint
+    level, then ONE decoder level (64 -> 200 points), all GroupNorm'd layers
+    past the first at 128-256 channels.
+
+    Every GroupNorm has min(32, C) groups, so layers of 64-128 channels
+    normalise groups of two to four, whose statistics cancel in fp32 where a
+    channel's mean dwarfs its spread: at `small_ae_config`'s widths fp32
+    rounding moves the last level's points ~3e-3 from the float64 forward,
+    which flips chamfer picks and most of the gradient, and at 128 channels
+    JAX's gradient still has 5836 of 2.6M elements beyond rtol 5e-3, atol
+    1e-4 of the port's float64 one.  Here both fp32 forwards lie ~6e-7 from
+    float64 and no gradient element is beyond the gate.  One decoder level
+    (its code is the cascade's) and two SA levels keep JAX's compile of the
+    train step near 30 s."""
+    cfg = small_ae_config()
+    level1, level2, _ = cfg["decoder_config_list"]
+    cfg["decoder_config_list"] = [level1, level2]
+    cfg["feature_weight"] = [0, 0.1]
+    cfg["encoder_config"]["architecture"].update(
+        npoint=[32, 8], nsample=[8, 4], radius=[0, 0], feature_dim=[16, 128, 256], mlp_depth=2)
+    level2["architecture"].update(npoint=[16, 8], nsample=[8, 4], radius=[0, 0],
+                                  feature_dim=[128, 128, 256],
+                                  decoder_feature_dim=[256] * 3, mlp_depth=2)
+    level2["feature_mapper_setting"].update(out_dim=128)
+    level2["upsampling_setting"].update(num_output_points=200)
     return cfg
 
 
@@ -115,8 +148,10 @@ def narrow_sap_config():
 
 
 def record_jax_fps(monkeypatch):
-    """Record every FPS call of the JAX decode (its trims and SA levels), in
-    order, as [cloud, start (B,), indices]; works under jit."""
+    """Record every FPS call of the JAX autoencoder (its trims, SA levels
+    and training targets), in order, as [cloud, start (B,), indices]; works
+    under jit."""
+    import slide_tpu.models.autoencoder as j_ae
     import slide_tpu.models.upsample_decoder as j_updec
     import slide_tpu.nn.modules as j_modules
     calls = []
@@ -129,8 +164,8 @@ def record_jax_fps(monkeypatch):
                            xyz, start, idx, ordered=True)
         return idx
 
-    monkeypatch.setattr(j_updec, "furthest_point_sample", recording)
-    monkeypatch.setattr(j_modules, "furthest_point_sample", recording)
+    for mod in (j_updec, j_modules, j_ae):
+        monkeypatch.setattr(mod, "furthest_point_sample", recording)
     return calls
 
 
@@ -163,13 +198,14 @@ def fps_ties(xyz, k, start, j_idx, tie_rtol=FPS_TIE_RTOL) -> int:
 
 
 def replay_fps_in_port(monkeypatch, calls, atol, tie_calls=()):
-    """Make the port's decode replay the recorded JAX FPS calls: the cloud
+    """Make the port's autoencoder replay the recorded JAX FPS calls: the cloud
     it hands FPS must match the JAX one within atol, its start must be the
     JAX start, the port's own FPS on the JAX cloud must give the JAX indices
     exactly (or, at the call positions in `tie_calls`, part from them only
     at a tie, `fps_ties`), and the JAX indices are what it gets back, so a
     near-tie between points 1e-6 apart cannot fork the two runs.  Returns
     the iterator, to check that every call was replayed."""
+    import slide_tpu_torch.models.autoencoder as t_ae
     import slide_tpu_torch.models.upsample_decoder as t_updec
     import slide_tpu_torch.nn.modules as t_modules
     from slide_tpu_torch.ops import furthest_point_sample
@@ -188,8 +224,8 @@ def replay_fps_in_port(monkeypatch, calls, atol, tie_calls=()):
                                             torch.as_tensor(j_start))), j_idx)
         return torch.as_tensor(j_idx)
 
-    monkeypatch.setattr(t_updec, "furthest_point_sample", replaying)
-    monkeypatch.setattr(t_modules, "furthest_point_sample", replaying)
+    for mod in (t_updec, t_modules, t_ae):
+        monkeypatch.setattr(mod, "furthest_point_sample", replaying)
     return replay
 
 
@@ -203,3 +239,50 @@ def flax_params_of(module: torch.nn.Module):
     """A port module's parameters as the flax tree `weights.load_flax_params`
     reads (`weights.module_to_flax`)."""
     return module_to_flax(module)
+
+
+def record_jax_posterior_noise(monkeypatch):
+    """Record the standard-normal noise of every posterior the JAX package
+    samples (`DiagonalGaussian.sample`), in order; works under jit."""
+    from slide_tpu.nn.distributions import DiagonalGaussian
+    noises = []
+
+    def sample(self, key):
+        noise = jax.random.normal(key, self.mean.shape, self.mean.dtype)
+        jax.debug.callback(lambda n: noises.append(np.array(n)), noise, ordered=True)
+        return self.mean + self.std * noise
+
+    monkeypatch.setattr(DiagonalGaussian, "sample", sample)
+    return noises
+
+
+def assert_trees_close(got, want, rtol, atol):
+    """A port tree (`module_to_flax` layout) against a JAX tree, leaf by leaf
+    in `jax.tree.leaves` order."""
+    jl, tl = jax.tree_util.tree_flatten_with_path(want)[0], flax_leaves(got)
+    assert len(jl) == len(tl)
+    for (path, w), g in zip(jl, tl):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=rtol, atol=atol,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def assert_one_adam_step(state, new_params, opt_state, rtol=5e-3, atol=1e-4):
+    """The port's `TrainState` after one Adam step against optax's: the
+    count; |g| read back from each moment (mu = 0.1 g, nu = 1e-3 g^2) at the
+    gradient tolerance; the parameters 1e-6 where |g| > 1e-3 (the step's
+    sign is beyond doubt there), else within the 2 lr a sign decided
+    otherwise could move them."""
+    from slide_tpu_torch.train.driver import adam_state_tree
+    count, mu, nu = adam_state_tree(state)[0]
+    jstate = opt_state[0]
+    assert int(count) == int(jstate.count) == state.step == 1
+    assert_trees_close(mu, jstate.mu, rtol=rtol, atol=0.1 * atol)
+    g_abs = jax.tree_util.tree_map(lambda v: np.sqrt(np.asarray(v) / 1e-3), jstate.nu)
+    assert_trees_close(jax.tree_util.tree_map(lambda v: np.sqrt(v / 1e-3), nu), g_abs,
+                       rtol=rtol, atol=atol)
+    lr = state.optimizer.param_groups[0]["lr"]
+    for g, w, a in zip(flax_leaves(module_to_flax(state.net)), jax.tree.leaves(new_params),
+                       jax.tree.leaves(g_abs)):
+        err = np.abs(g - np.asarray(w))
+        assert float(err[a > 1e-3].max(initial=0)) <= 1e-6
+        assert float(err.max()) <= 2 * lr + 1e-6
