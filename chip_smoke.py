@@ -12,8 +12,8 @@ line each as soon as it ends:
            and the ptxas report
   k3       the FPS kernel against its plain PyTorch version at every shape
            the decode and the SAP net give it (batch 16, random and zero
-           starts) and at training's (batch 32, 2049 -> 16): indices must be
-           equal; the
+           starts) and at training's (batch 32: 2049 -> 16, the encoder's
+           and the SAP net's levels): indices must be equal; the
            threads per block (`threads_for`), kernel ms, plain ms and the
            bound per shape
   k1_plan  per net and per occupancy (1 and 2 blocks per SM, where a plan
@@ -94,6 +94,18 @@ line each as soon as it ends:
            gate); `train_latent_ddpm` warm-up, counted run (exactly one K1,
            one K2 and LATENT_FPS_PER_STEP FPS launches a step) and profiled
            run as for the autoencoder
+  train_sap the SAP upsampler at the shipped preset's full width and batch
+           32 on a tree of 128^3 DPSR grids written on the card: the SAP
+           net's parameter gradient through the whole loss (the net, the
+           split, DPSR, the tanh-MSE) on the card and on the CPU, the card's
+           FPS picks checked and its kNN searches replayed, each side within
+           SAP_GRAD_TOL of a float64 run, the card within SAP_CARD_CPU_TOL
+           of the CPU; the loader's ms a batch and the grids' copy to the
+           card; `train_upsampler` warm-up, counted
+           run (exactly len(SAP_FPS) FPS launches a step, no fused launch)
+           and profiled run as above, the peak memory; then a few steps
+           with the committed AE's round trip in front (exactly
+           SAP_AE_FPS_PER_STEP FPS launches a step)
 
 Then the nvidia-smi line, one JSON line of kernel figures, and the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
@@ -116,12 +128,14 @@ import torch
 from slide_tpu_torch import _build
 from slide_tpu_torch.models import fused_denoiser as fd
 from slide_tpu_torch.ops import fps as fps_mod
-from slide_tpu_torch.configs import autoencoder_config, keypoint_ddpm_config, latent_ddpm_config
+from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
+                                     latent_ddpm_config, upsampler_config)
 from slide_tpu_torch.data import get_dataloader, write_synthetic_shapenet_psr
 from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
                                        diffusion_training_loss, latent_config_weights,
                                        latent_train_loss)
 from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder
+from slide_tpu_torch.nn import modules as sa_modules
 from slide_tpu_torch.nn import neighborhood
 from slide_tpu_torch.ops import knn_points
 from slide_tpu_torch.pipeline import DEFAULT_CKPTS, build_stages, generate, with_fastdpm
@@ -191,15 +205,36 @@ TASK_PROFILE_STEPS = 5
 # targets (1); a latent step the keypoints and the frozen encoder's levels
 AE_FPS_PER_STEP = 1 + len(ENCODER_FPS) + len(DECODE_FPS) + 1
 LATENT_FPS_PER_STEP = 1 + len(ENCODER_FPS)
+# the SAP upsampler's training (steps of batch 32) on a tree of 128^3 grids
+# written on the card: SAP_MODELS models a split in each of four categories
+SAP_CATEGORIES = ("02691156", "02933112", "02958343", "03001627")
+SAP_MODELS = 8
+SAP_WARMUP, SAP_STEPS = 3, 20
+# K3 launches a step, from the code: the SAP net's four SA levels; with the
+# AE round trip first the keypoints (1), the frozen encoder's levels (4) and
+# the decode's nine calls
+SAP_AE_FPS_PER_STEP = 1 + len(ENCODER_FPS) + len(DECODE_FPS) + len(SAP_FPS)
+SAP_AE_STEPS = 3
+SAP_AE_NOISE = 0.02
+# the gradient gate on the batch's first clouds, of the largest gradient
+# element: each fp32 side (card, CPU) within SAP_GRAD_TOL of the float64 run
+# on the same picks and searches, and the card within SAP_CARD_CPU_TOL of
+# the CPU; measured 1.97e-3 from float64 on both sides (in the same
+# elements: the fp32 map into DPSR's cube decides a few points' cells
+# alike on both), 8.7e-5 card vs CPU (H100 80GB HBM3, 700 W)
+SAP_GRAD_CLOUDS = 2
+SAP_GRAD_TOL, SAP_CARD_CPU_TOL = 5e-3, 5e-4
+SAP_LOADER_BATCHES = 3
 # encode on the card against the CPU: the CPU re-encodes this many clouds of
 # the batch (the encoder at 2048 points runs ~1 s a cloud on the CPU)
 ENCODE_CHECK = 4
 # every element within ENCODE_TOL x max(1, max |cpu|), the card's kNN picks
-# replayed into the CPU run: fp32 rounding through the encoder's GroupNorms
-# of one channel; measured 1.12e-3 of 4.24 here (the committed AE, batch
-# 32's first four clouds) and 1.59e-3 of 3.24 in tests/test_torch_cuda.py
-# (batch 2), i.e. 2.6e-4 and 4.9e-4 of the features' size (H100 80GB HBM3)
-ENCODE_TOL = 2e-3
+# replayed into the CPU run: measured 1.05e-5 of 4.24 here (the committed
+# AE, batch 32's first four clouds) and 5.2e-6 of 3.24 in
+# tests/test_torch_cuda.py (batch 2), i.e. 2.5e-6 and 1.6e-6 of the
+# features' size (H100 80GB HBM3), since GroupNorm sums its statistics in
+# float64 (1.12e-3 and 1.59e-3 before: the CPU's fp32 sums)
+ENCODE_TOL = 5e-5
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -249,7 +284,7 @@ def phase_k3(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     per_shape, max_err = {}, 0
     shapes = ({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS}
-              | {(n, k, TRAIN_BATCH) for n, k in ENCODER_FPS})
+              | {(n, k, TRAIN_BATCH) for n, k in ENCODER_FPS + SAP_FPS})
     for n, k, b in sorted(shapes):
         xyz = torch.randn((b, n, 3), generator=gen, device=dev)
         starts = {"random": torch.randint(0, n, (b,), generator=gen, device=dev,
@@ -728,6 +763,9 @@ def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> 
                                    torch.Generator().manual_seed(0))
     cpu_net = ConditionalPointNet2(pointnet)
     cpu_net.load_state_dict(net.state_dict())
+    net64 = ConditionalPointNet2(pointnet)
+    net64.load_state_dict(net.state_dict())
+    net64.double()
     net = net.to(dev)
     b = x.shape[0]
     label = label.cpu()
@@ -747,6 +785,9 @@ def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> 
     loss.backward()
     cpu_loss = loss_fn(lambda xt, t: cpu_net(xt, ts=t, label=label), x.cpu(), ts, z)
     cpu_loss.backward()
+    # the same loss in float64 on the CPU: how far each fp32 side lies from it
+    loss_fn(lambda xt, t: net64(xt, ts=t, label=label), x.cpu().double(), ts,
+            z.double()).backward()
 
     # the core's inputs again (under autograd, to carry a change of K2's
     # output back to the parameters), K2 on them, and its tie decisions
@@ -766,11 +807,18 @@ def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> 
         [(w - p).float() for w, p in zip(want[1:], plain64[1:])], allow_unused=True)
 
     beyond, beyond_raw, worst, where = 0, 0, 0.0, {}
-    for (name, p), q, tie in zip(params.items(), cpu_net.parameters(), taken):
+    f64 = {"card": [0.0, 0], "cpu": [0.0, 0], "size": 0.0}
+    for (name, p), q, r, tie in zip(params.items(), cpu_net.parameters(), net64.parameters(),
+                                    taken):
         raw = p.grad.double().cpu()
         got_p = raw - (0 if tie is None else tie.double().cpu())
         want_p = q.grad.double()
         tol = GRAD_ATOL + GRAD_RTOL * want_p.abs()
+        ref = r.grad
+        f64["size"] = max(f64["size"], float(ref.abs().max()))
+        for side, g in (("card", got_p), ("cpu", want_p)):
+            f64[side][0] = max(f64[side][0], float((g - ref).abs().max()))
+            f64[side][1] += int(((g - ref).abs() > GRAD_ATOL + GRAD_RTOL * ref.abs()).sum())
         beyond_raw += int(((raw - want_p).abs() > tol).sum())
         err = (got_p - want_p).abs()
         worst = max(worst, float(err.max()))
@@ -780,7 +828,9 @@ def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> 
         beyond += bad
     log(f"{phase}_gradient", loss=float(loss.detach()), cpu_loss=float(cpu_loss.detach()),
         max_abs_err=worst, beyond=beyond, beyond_before_ties=beyond_raw, ties=ties,
-        core=core_errs)
+        core=core_errs, float64={"max_abs_grad": f64["size"], "card_max_abs_err": f64["card"][0],
+                                 "card_beyond": f64["card"][1], "cpu_max_abs_err": f64["cpu"][0],
+                                 "cpu_beyond": f64["cpu"][1]})
     if where or not all(e["ok"] for e in core_errs.values()):
         raise AssertionError(f"{phase}: gradient differs from the CPU module's: {where}; "
                              f"K2 at the core: {core_errs}")
@@ -791,7 +841,8 @@ def _first_batch(cfg: dict, dev) -> dict:
     batch = next(iter(get_dataloader(cfg["shapenet_psr_dataset_config"], seed=0)))
     return {key: torch.as_tensor(batch[key], dtype=dtype, device=dev)
             for key, dtype in (("points", torch.float32), ("normals", torch.float32),
-                               ("label", torch.int64))}
+                               ("psr", torch.float32), ("label", torch.int64))
+            if key in batch}
 
 
 def _device_us(evt) -> float:
@@ -1045,6 +1096,187 @@ def phase_train_latent(dev, root: str, tmp: str) -> dict:
     return {**res, "grad_err": grad_err}
 
 
+def _record_fps():
+    """Wrap the SA levels' FPS so that it records each call's picks on the
+    host; returns the list."""
+    calls, real = [], sa_modules.furthest_point_sample
+
+    def recording(xyz, k, *args, **kwargs):
+        idx = real(xyz, k, *args, **kwargs)
+        calls.append(idx.cpu())
+        return idx
+
+    sa_modules.furthest_point_sample = recording
+    return calls
+
+
+def _replay_fps(picks, check: bool):
+    """Hand the recorded FPS picks to a run on the CPU; with `check`, its own
+    FPS on the same cloud must give them exactly."""
+    it, real = iter(picks), sa_modules.furthest_point_sample
+
+    def replaying(xyz, k, *args, **kwargs):
+        want = next(it)
+        if check and not torch.equal(real(xyz, k, *args, **kwargs).cpu(), want):
+            raise AssertionError("sap: the CPU's FPS picks differ from the card's")
+        return want.to(xyz.device)
+
+    sa_modules.furthest_point_sample = replaying
+
+
+def _replay_knn_float64(calls):
+    """Hand the recorded kNN searches to a float64 run: the card's neighbour
+    sets and its fp32 squared distances, as float64."""
+    it = iter(calls)
+
+    def replaying(query, points, k):
+        c_query, _, c_sqd, c_idx = next(it)
+        if float((query - c_query.double()).abs().max()) > 1e-4:
+            raise AssertionError("sap: the float64 run's kNN query left the card's")
+        return c_sqd.double(), c_idx
+
+    neighborhood.knn_points = replaying
+
+
+def check_sap_gradient(cfg: dict, batch: dict, dev) -> dict:
+    """The SAP net's parameter gradient through the full loss (the net, the
+    split, DPSR at the preset's grid, the tanh-MSE) on the batch's first
+    SAP_GRAD_CLOUDS clouds, the committed SAP weights: the card against the
+    CPU module on the same mirrored cloud (made on the card), the card's FPS
+    picks checked and its kNN searches replayed; each fp32 side against a
+    float64 run on the same picks and searches."""
+    import copy
+    n = SAP_GRAD_CLOUDS
+    dc = cfg["dpsr_config"]
+    res = (dc["grid_res"],) * 3
+    net = ConditionalPointNet2(cfg["pointnet_config"])
+    load_flax_params(net, load_inference_params(str(DEFAULT_CKPTS["sap"]), -1))
+    normals = batch["normals"][:n] / torch.linalg.vector_norm(batch["normals"][:n], dim=-1,
+                                                               keepdim=True)
+    xm = mirror_and_concat(torch.cat([batch["points"][:n], normals], dim=-1), axis=2,
+                           attach_label=True,
+                           generator=torch.Generator(device=dev).manual_seed(7))[0]
+    label, psr = batch["label"][:n], batch["psr"][:n]
+    runs = {}
+
+    def run(key, d, dtype):
+        net_ = copy.deepcopy(net).to(d, dtype)
+        loss = train_driver.upsampler_loss(
+            net_, DPSR(res, sig=dc["psr_sigma"]).to(d, dtype), xm.to(d, dtype), label.to(d),
+            psr.to(d, dtype), cfg["shapenet_psr_dataset_config"], dc, cfg["pointnet_config"])
+        loss.backward()
+        runs[key] = (float(loss.detach()),
+                     {name: p.grad.double().cpu() for name, p in net_.named_parameters()})
+
+    real_knn, real_fps = neighborhood.knn_points, sa_modules.furthest_point_sample
+    try:
+        knn_calls, picks = _record_knn(), _record_fps()
+        before = _build.launch_counts["fps"]
+        run("card", dev, torch.float32)
+        torch.cuda.synchronize()
+        fps_launches = _build.launch_counts["fps"] - before
+        neighborhood.knn_points, sa_modules.furthest_point_sample = real_knn, real_fps
+        seen = _replay_knn(knn_calls, n)
+        _replay_fps(picks, check=True)
+        t0 = time.perf_counter()
+        run("cpu", "cpu", torch.float32)
+        cpu_s = time.perf_counter() - t0
+        _replay_knn_float64(knn_calls)
+        _replay_fps(picks, check=False)
+        run("float64", "cpu", torch.float64)
+    finally:
+        neighborhood.knn_points, sa_modules.furthest_point_sample = real_knn, real_fps
+    ref = runs["float64"][1]
+    size = max(float(g.abs().max()) for g in ref.values())
+    errs = {}
+    for side in ("card", "cpu"):
+        grads = runs[side][1]
+        per = {name: float((grads[name] - g).abs().max()) for name, g in ref.items()}
+        worst = sorted(per.items(), key=lambda kv: -kv[1])[:5]
+        errs[side] = {"max_abs_err": max(per.values()), "of_size": max(per.values()) / size,
+                      "worst": worst}
+    card_cpu = max(float((runs["card"][1][k] - runs["cpu"][1][k]).abs().max()) for k in ref)
+    finite = all(bool(torch.isfinite(g).all()) for g in runs["card"][1].values())
+    log("train_sap_gradient", clouds=n, grid=list(res), losses={k: v[0] for k, v in runs.items()},
+        max_abs_grad=size, card_vs_float64=errs["card"], cpu_vs_float64=errs["cpu"],
+        card_vs_cpu=card_cpu, tol=SAP_GRAD_TOL * size,
+        card_cpu_tol=SAP_CARD_CPU_TOL * size, knn_calls=seen["calls"],
+        knn_ties=seen["ties"], fps_launches=fps_launches, finite=finite, cpu_seconds=cpu_s)
+    if seen["calls"] != len(knn_calls) or fps_launches != len(SAP_FPS):
+        raise AssertionError(f"sap: {seen['calls']} of {len(knn_calls)} kNN calls replayed, "
+                             f"{fps_launches} FPS launches")
+    bad = [side for side in ("card", "cpu") if errs[side]["max_abs_err"] > SAP_GRAD_TOL * size]
+    if bad or card_cpu > SAP_CARD_CPU_TOL * size or not finite:
+        raise AssertionError(f"sap: gradient of {bad} beyond {SAP_GRAD_TOL} of {size} from "
+                             f"float64 ({errs}), card vs CPU {card_cpu}")
+    return {"card_vs_float64": errs["card"]["max_abs_err"],
+            "cpu_vs_float64": errs["cpu"]["max_abs_err"], "card_vs_cpu": card_cpu,
+            "max_abs_grad": size}
+
+
+def phase_train_sap(dev, tmp: str) -> dict:
+    """The SAP upsampler at full width through `train_upsampler`, on a tree
+    of 128^3 grids the port writes on the card: the gradient gate, the
+    counted run, the peak memory; then a few steps with the committed AE's
+    round trip."""
+    root = os.path.join(tmp, "shapenet_psr_sap")
+    t0 = time.perf_counter()
+    write_synthetic_shapenet_psr(root, categories=SAP_CATEGORIES, models_per_split=SAP_MODELS,
+                                 num_points=3000, psr_res=128, shape_variety=True,
+                                 psr_from_points=True, device=dev)
+    torch.cuda.synchronize()
+    log("train_sap_setup", seconds=time.perf_counter() - t0, categories=len(SAP_CATEGORIES),
+        models=len(SAP_CATEGORIES) * SAP_MODELS * 3, psr_res=128)
+    cfg = _task_config(upsampler_config(batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_sap"))
+    cfg["shapenet_psr_dataset_config"]["categories"] = list(SAP_CATEGORIES)
+    grad = check_sap_gradient(cfg, _first_batch(cfg, dev), dev)
+    # the host's part of a step: one batch off the loader (32 grids of
+    # 128^3 read from the tree), then onto the card
+    loader = get_dataloader(cfg["shapenet_psr_dataset_config"], seed=0)
+    load_s, copy_s = [], []
+    for _ in range(SAP_LOADER_BATCHES):
+        t0 = time.perf_counter()
+        batch = next(iter(loader))
+        load_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        torch.as_tensor(batch["psr"], device=dev)
+        torch.cuda.synchronize()
+        copy_s.append(time.perf_counter() - t0)
+    log("train_sap_loader", batches=SAP_LOADER_BATCHES, load_ms=1e3 * float(np.mean(load_s)),
+        copy_ms=1e3 * float(np.mean(copy_s)), psr_bytes=int(batch["psr"].nbytes))
+    torch.cuda.reset_peak_memory_stats()
+    res = run_task("train_sap", train_driver.train_upsampler, cfg, SAP_WARMUP, SAP_STEPS,
+                   {"fps": len(SAP_FPS), "fused_denoiser": 0, "fused_denoiser_bwd": 0},
+                   TASK_PROFILE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+
+    # the round trip through the committed AE, from a fresh start
+    cfg_ae = _task_config(upsampler_config(batch_size=TRAIN_BATCH), root,
+                          os.path.join(tmp, "exp_sap_ae"))
+    cfg_ae["shapenet_psr_dataset_config"]["categories"] = list(SAP_CATEGORIES)
+    cfg_ae["autoencoder_config"] = autoencoder_config("airplane")
+    cfg_ae["autoencoder_config"]["noise_magnitude"] = SAP_AE_NOISE
+    ae_params = load_inference_params(str(DEFAULT_CKPTS["ae"]), -1)
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, losses = train_driver.train_upsampler(cfg_ae, ae_params=ae_params,
+                                                 max_iters=SAP_AE_STEPS, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ae_launches = dict(_build.launch_counts)
+    values = [l for _, l in losses]
+    finite = bool(np.isfinite(values).all()) and len(values) > 0
+    log("train_sap_ae", steps=SAP_AE_STEPS, seconds=seconds, losses=losses, finite=finite,
+        launches=ae_launches, fps_per_step_expected=SAP_AE_FPS_PER_STEP,
+        noise_magnitude=SAP_AE_NOISE, peak_memory_bytes=peak)
+    del state
+    if not finite or ae_launches != {"fps": SAP_AE_FPS_PER_STEP * SAP_AE_STEPS}:
+        raise AssertionError(f"train_sap_ae: losses {losses}, launches {ae_launches}, "
+                             f"expected {SAP_AE_FPS_PER_STEP} FPS a step and nothing else")
+    return {**res, "grad": grad, "peak_memory_bytes": peak, "ae_launches": ae_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1087,7 +1319,8 @@ def main():
     run_slice("unfused_slice", unfused, 0, want_fused=0)
     del unfused
 
-    # the three training tasks on one synthetic airplane tree with normals
+    # the training tasks: the first three on one synthetic airplane tree with
+    # normals, the SAP upsampler on a tree of DPSR grids
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "shapenet_psr")
         t0 = time.perf_counter()
@@ -1095,7 +1328,7 @@ def main():
                                      num_points=3000, shape_variety=True, with_psr=False)
         log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
         tasks = {"kp": phase_train(dev, root, tmp), "ae": phase_train_ae(dev, root, tmp),
-                 "latent": phase_train_latent(dev, root, tmp)}
+                 "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp)}
 
     def per_task(name):
         return {task: res["launches"].get(name, 0) for task, res in tasks.items()}
@@ -1109,6 +1342,7 @@ def main():
     # FPS: one pass's worth of calls (the decode's and the SAP net's), summed
     ms, plain_ms, (bound_ms, bound_by) = fps_sum(PASS_FPS, BATCH)
     enc_ms, enc_plain_ms, (enc_bound_ms, enc_bound_by) = fps_sum(ENCODER_FPS, TRAIN_BATCH)
+    sap_train = fps_sum(SAP_FPS, TRAIN_BATCH)
     # K1: per launch of the main path, which runs the kp and latent nets
     # 1000 times each at batch 16: the mean of the two
     nets = [k1[(name, BATCH)] for name in ("kp", "lat")]
@@ -1127,7 +1361,9 @@ def main():
         "sap_ms": fps_sum(SAP_FPS, BATCH)[0], "sap_plain_ms": fps_sum(SAP_FPS, BATCH)[1],
         "sap_bound_ms": fps_sum(SAP_FPS, BATCH)[2][0],
         "encoder_ms": enc_ms, "encoder_plain_ms": enc_plain_ms,
-        "encoder_bound_ms": enc_bound_ms, "encoder_bound_by": enc_bound_by}, {
+        "encoder_bound_ms": enc_bound_ms, "encoder_bound_by": enc_bound_by,
+        "sap_train_ms": sap_train[0], "sap_train_plain_ms": sap_train[1],
+        "sap_train_bound_ms": sap_train[2][0], "sap_train_bound_by": sap_train[2][1]}, {
         "name": "fused_denoiser", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",

@@ -1,8 +1,9 @@
 """Synthetic ShapeNet-PSR fixture (counterpart: `slide_tpu/data/synthetic.py`):
 writes a small dataset tree in the real on-disk layout, so training runs
-without the real data.  numpy only: `metadata.yaml` is written by hand in
-the form PyYAML's `safe_dump` gives (the same bytes), and the same seed gives
-the same files as the JAX package's writer."""
+without the real data.  No PyYAML: `metadata.yaml` is written by hand in the
+form PyYAML's `safe_dump` gives (the same bytes), and the same seed gives
+the same clouds as the JAX package's writer (the `psr_from_points` grids
+agree to DPSR's rounding: `torch.fft` against XLA's FFT)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import os
 import re
 
 import numpy as np
+import torch
 
 # the 13 ShapeNet-PSR synsets (metadata.yaml), so label indices match
 ALL_SYNSETS = {
@@ -91,14 +93,22 @@ def write_synthetic_shapenet_psr(root: str, categories=("02691156",),
                                  num_points: int = 3000, psr_res: int = 16,
                                  seed: int = 0, with_psr: bool = True,
                                  shape_variety: bool = False,
-                                 psr_from_points: bool = False) -> str:
+                                 psr_from_points: bool = False, device=None) -> str:
     """Write metadata.yaml, the .lst splits and random pointcloud.npz /
     psr.npz files; returns `root`.  shape_variety: a random ellipsoid per
     model (per-category axis ranges) in place of the radius-0.4 sphere.
-    psr_from_points needs DPSR, which the port does not have yet."""
+    psr_from_points: each psr.npz is DPSR (`psr_res`^3, sigma 2) of the
+    model's own points and normals, mapped into DPSR's cube as the SAP
+    training path maps them (raw / 1.2 + 0.5), the indicator grid the SAP
+    upsampler trains against, in place of uniform noise; it draws nothing
+    from the seed's generator.  The grids are solved on `device` (the card
+    unless the caller asks for the CPU)."""
+    dpsr = None
     if with_psr and psr_from_points:
-        raise NotImplementedError("psr_from_points needs DPSR, not ported yet "
-                                  "(ROADMAP Queue A, items 5+9)")
+        from slide_tpu_torch.pipeline import resolve_device
+        from slide_tpu_torch.sap import DPSR
+        dev = resolve_device(device)
+        dpsr = DPSR((psr_res,) * 3, sig=2).to(dev)
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
     metadata = {c: {"id": c, "name": ALL_SYNSETS.get(c, c)} for c in ALL_SYNSETS}
@@ -126,7 +136,13 @@ def write_synthetic_shapenet_psr(root: str, categories=("02691156",),
                 nrm = nrm / np.linalg.norm(nrm, axis=1, keepdims=True)
                 np.savez(os.path.join(mdir, "pointcloud.npz"),
                          points=pts.astype(np.float32), normals=nrm.astype(np.float32))
-                if with_psr:
+                if dpsr is not None:
+                    g = np.clip(pts / 1.2 + 0.5, 0.0, 0.99)
+                    with torch.no_grad():
+                        psr = dpsr(torch.as_tensor(g[None], device=dev),
+                                   torch.as_tensor(nrm[None], device=dev))[0].cpu().numpy()
+                    np.savez(os.path.join(mdir, "psr.npz"), psr=psr)
+                elif with_psr:
                     psr = rng.uniform(-1, 1, (psr_res,) * 3)
                     np.savez(os.path.join(mdir, "psr.npz"), psr=psr.astype(np.float32))
     return root

@@ -44,7 +44,8 @@ def calc_t_emb(ts: torch.Tensor, t_dim: int) -> torch.Tensor:
 
 class GroupNorm(nn.Module):
     """flax `GroupNorm`: statistics per sample and group over every other
-    axis, in fp32, with var = E[x^2] - E[x]^2 clipped at 0."""
+    axis, in fp32 (float64 for float64 input: a float64 run is a reference),
+    with var = E[x^2] - E[x]^2 clipped at 0."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -58,13 +59,19 @@ class GroupNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c = x.shape[0], x.shape[-1]
         g = self.num_groups
-        xg = x.float().reshape(b, -1, g, c // g)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        mean2 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+        xg = x.to(torch.float64 if x.dtype == torch.float64 else torch.float32)
+        xg = xg.reshape(b, -1, g, c // g)
+        # E[x^2] - E[x]^2 cancels: the sums accumulate in float64, over each
+        # group's elements laid out contiguously (the CPU's fp32 reduction
+        # over the strided (rows, channels) axes left var up to 7e-5 off in
+        # a group, the output ~1e-5, and ran slower)
+        flat = xg.transpose(1, 2).reshape(b, g, -1)
+        mean = flat.mean(dim=-1, dtype=torch.float64)[:, None, :, None]
+        mean2 = (flat * flat).mean(dim=-1, dtype=torch.float64)[:, None, :, None]
         # torch.maximum: gradient 0.5 at a tie, as flax's jnp.maximum
         var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
-        mul = torch.rsqrt(var + self.eps) * self.weight.reshape(g, c // g)
-        y = (xg - mean) * mul + self.bias.reshape(g, c // g)
+        mul = torch.rsqrt(var + self.eps).to(xg.dtype) * self.weight.reshape(g, c // g)
+        y = (xg - mean.to(xg.dtype)) * mul + self.bias.reshape(g, c // g)
         return y.reshape(x.shape)
 
 
@@ -234,5 +241,6 @@ class TimestepEmbedder(nn.Module):
         self.fc_t2 = nn.Linear(4 * t_dim, 4 * t_dim)
 
     def forward(self, ts: torch.Tensor) -> torch.Tensor:
-        t = swish(self.fc_t1(calc_t_emb(ts, self.t_dim)))
+        # the sinusoid in the layers' dtype (float64 in a reference run)
+        t = swish(self.fc_t1(calc_t_emb(ts, self.t_dim).to(self.fc_t1.weight.dtype)))
         return swish(self.fc_t2(t))

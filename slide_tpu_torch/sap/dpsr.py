@@ -48,17 +48,20 @@ def _corner_data(pts: torch.Tensor, res: Sequence[int]):
     pts (B, N, 3) in [0, 1) -> (idx (B, N, 8, 3) int64, weights (B, N, 8)).
     `pts / cube` with cube = 1/size, as the JAX package writes it: it
     decides the floor at cell boundaries."""
-    size = torch.tensor(res, dtype=torch.float32, device=pts.device)
+    size = torch.tensor(res, dtype=pts.dtype, device=pts.device)
     cube = 1.0 / size
     ind0 = torch.floor(pts / cube)
     ind1 = torch.remainder(torch.ceil(pts / cube), size)       # periodic
-    c = _CORNERS.to(pts.device)[None, None]                     # (1, 1, 8, 3)
+    c = _CORNERS.to(pts.device, pts.dtype)[None, None]          # (1, 1, 8, 3)
     idx = torch.where(c == 0, ind0[:, :, None, :], ind1[:, :, None, :])
     # weight = product over dims of |pt - the OPPOSITE corner| / cube
     xyz0 = ind0 * cube
     xyz1 = (ind0 + 1.0) * cube
     pos_opp = torch.where(c == 0, xyz1[:, :, None, :], xyz0[:, :, None, :])
-    d = torch.abs(pts[:, :, None, :] - pos_opp) / cube
+    # |.| with jnp.abs's derivative, +1 at 0: a point on a grid plane moves
+    # its weights as a point of the cell it was put in (torch.abs gives 0)
+    diff = pts[:, :, None, :] - pos_opp
+    d = torch.where(diff >= 0, diff, -diff) / cube
     weights = d[..., 0] * d[..., 1] * d[..., 2]
     return idx.long(), weights
 
@@ -142,9 +145,12 @@ class DPSR(nn.Module):
 
     def forward(self, v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
         """v: (B, nv, 3) points in [0, 1); n: (B, nv, 3) normals -> the
-        indicator field phi (B, *res)."""
+        indicator field phi (B, *res), in fp32 (float64 for float64 points
+        and a solver cast with `.double()`, the reference of gradient
+        checks)."""
         if v.shape != n.shape:
             raise ValueError("points and normals must have the same shape")
-        v = v.float()
-        ras = point_rasterize(v, n.float(), self.res)                # (B, 3, *res)
+        dtype = torch.float64 if v.dtype == torch.float64 else torch.float32
+        v = v.to(dtype)
+        ras = point_rasterize(v, n.to(dtype), self.res)              # (B, 3, *res)
         return self.shift_and_scale(self.solve(ras), v)

@@ -56,5 +56,8 @@ def network_output_to_dpsr_grid(x: torch.Tensor, displacement: torch.Tensor,
         points = shapenet_psr_normalize(points)
     else:
         points = points / scale / 2.0
-    points = torch.clamp(points / 1.2 + 0.5, 0.0, 0.99)
+    # jnp.clip's form, max then min: a point exactly at a bound passes half
+    # its gradient, as in the JAX package (torch.clamp would pass all of it)
+    points = torch.minimum(torch.maximum(points / 1.2 + 0.5, points.new_tensor(0.0)),
+                           points.new_tensor(0.99))
     return dpsr(points, normals), points, normals

@@ -1,6 +1,6 @@
 """Training (counterpart: `slide_tpu/train/driver.py`): the position DDPM,
-the point autoencoder and the feature (latent) DDPM, on the scaffold they
-share.
+the point autoencoder, the feature (latent) DDPM and the SAP
+refine+upsample net, on the scaffold they share.
 
     state, losses = train_position_ddpm(keypoint_ddpm_config("airplane"),
                                         data_dir=root, max_iters=200)
@@ -8,6 +8,8 @@ share.
                                       data_dir=root, max_iters=200)
     state, losses = train_latent_ddpm(latent_ddpm_config("airplane"), ae_params,
                                       data_dir=root, max_iters=200)
+    state, losses = train_upsampler(upsampler_config(), data_dir=root,
+                                    max_iters=200)
 
 One position step: keypoints by FPS over the centroid-prepended cloud (K3),
 the eps loss at one random timestep per cloud, its gradient, Adam (optax's
@@ -15,9 +17,12 @@ the eps loss at one random timestep per cloud, its gradient, Adam (optax's
 One autoencoder step: noisy keypoints (K3), the round trip (the SA levels
 and the decoder's trims on K3) and its per-level chamfer losses.  One latent
 step: keypoints (K3), the frozen autoencoder's encode (K3 in its SA
-levels), the latent eps loss.  With `fused=True` (the default) the DDPM
-denoisers are the fused one: K1 forward and K2 backward on the card, their
-plain versions on the CPU.  Entry points run on the card unless the caller
+levels), the latent eps loss.  One upsampler step: the mirrored cloud
+(optionally first corrupted by a frozen autoencoder's round trip), the SAP
+net (K3 in its SA levels), the split cloud's DPSR grid under autograd and
+the (tanh-)MSE against the dataset's grid.  With `fused=True` (the
+default) the DDPM denoisers are the fused one: K1 forward and K2 backward
+on the card, their plain versions on the CPU.  Entry points run on the card unless the caller
 passes `device="cpu"`.
 
 Resume is by default (`ckpt_iter: "max"`), checkpoints are the JAX
@@ -28,10 +33,10 @@ explicit generators: the network's init from `seed`, the per-step draws from
 `seed + 1`, the data from numpy with `seed`.  Each step also takes its draws
 as an argument (a test replays the JAX package's).
 
-Left out (ROADMAP): the upsampler's task, the other position tasks (16b),
-the x0-engine step (13b), the device-resident corpus (15a's `device_data`),
-`activation_dtype` (16b) and the checkpoint-time eval hooks (17); a config
-or an argument asking for one raises.
+Left out (ROADMAP): the other position tasks (16b), the x0-engine step
+(13b), the device-resident corpus (15a's `device_data`), `activation_dtype`
+(16b) and the checkpoint-time eval hooks (17); a config or an argument
+asking for one raises.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder
 from slide_tpu_torch.models.fused_denoiser import make_fused_train_fn
 from slide_tpu_torch.ops import sample_keypoints
 from slide_tpu_torch.pipeline import resolve_device
+from slide_tpu_torch.sap import DPSR, mirror_and_concat, network_output_to_dpsr_grid
 from slide_tpu_torch.train.checkpoint import (load_checkpoint, mirror_checkpoint,
                                               restore_from_mirror, save_checkpoint)
 from slide_tpu_torch.train.ema import ema_init, ema_update
@@ -78,8 +84,7 @@ class TrainState:
 def init_params(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw `net`'s parameters from `generator` with the JAX package's
     initialisers: dense kernels U(-1/sqrt(fan_in), 1/sqrt(fan_in)) and zero
-    biases, GroupNorm scale 1 and bias 0; class embeddings N(0, 1/features)
-    (the JAX package draws them N(0, 1): ROADMAP Queue C)."""
+    biases, GroupNorm scale 1 and bias 0, class embeddings N(0, 1)."""
     with torch.no_grad():
         for mod in net.modules():
             if isinstance(mod, nn.Linear):
@@ -90,9 +95,8 @@ def init_params(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
-                w = torch.randn(mod.weight.shape, generator=generator,
-                                device=generator.device)
-                mod.weight.copy_(w / math.sqrt(mod.embedding_dim))
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator,
+                                             device=generator.device))
             elif isinstance(mod, GroupNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -281,8 +285,9 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
                  data_dir: Optional[str] = None, max_iters: Optional[int] = None,
                  seed: int = 0, eval_hook: Optional[Callable] = None,
                  verbose: bool = True):
-    """The training loop: resume, one step per batch (`points`, `normals`
-    and `label` on the device), logging, checkpoints.  Returns (state,
+    """The training loop: resume, one step per batch (`points`, `normals`,
+    `label` and, where the dataset loads it, `psr` on the device), logging,
+    checkpoints.  Returns (state,
     [(iter, loss), ...]) with a loss every `iters_per_logging` iterations;
     a non-finite logged loss raises FloatingPointError."""
     train_config = config["train_config"]
@@ -348,7 +353,8 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
             dbatch = {key: torch.as_tensor(batch[key], dtype=dtype, device=dev)
                       for key, dtype in (("points", torch.float32),
                                          ("normals", torch.float32),
-                                         ("label", torch.int64))}
+                                         ("psr", torch.float32),
+                                         ("label", torch.int64)) if key in batch}
             loss = train_step(state, dbatch, generator)
             if n_iter % iters_per_logging == 0:
                 loss_v = float(loss)
@@ -562,5 +568,115 @@ def train_latent_ddpm(config: dict, ae_params, *, data_dir: Optional[str] = None
     Returns (TrainState, [(iter, loss), ...])."""
     state, step = build_latent_training(config, ae_params, seed=seed, device=device,
                                         fused=fused)
+    return run_training(config, state, step, data_dir=data_dir, max_iters=max_iters,
+                        seed=seed, eval_hook=eval_hook, verbose=verbose)
+
+
+# ---------------------------------------------------------------------------
+# The SAP refine+upsample net
+
+
+def make_upsampler_train_step(net: nn.Module, dpsr: nn.Module, trainset_config: dict,
+                              dpsr_config: dict, pointnet_config: dict,
+                              ae: Optional[nn.Module] = None,
+                              noise_magnitude: float = 0.0) -> Callable:
+    """`step(state, batch, generator, draws=None) -> loss`: unit normals,
+    optionally the cloud corrupted by a frozen autoencoder's round trip
+    (noisy FPS keypoints, `encode` with its posterior sampled, `decode`,
+    then `noise_magnitude` noise), the mirror and its +1 / -1 tags, the SAP
+    net's displacements, the split cloud's DPSR grid and the (tanh-)MSE
+    against the batch's `psr` grid.  `draws` replaces the step's random
+    draws: "keypoint_noise" (B, K, 3), "posterior" (encode's two noises),
+    "ae_noise" (the decoded cloud's noise, (B, N, split_factor, F) under
+    `split_before_refine`, else its shape) and "perm" (the mirror's)."""
+    mirror_first = dpsr_config.get("mirror_before_upsampling", False)
+    only_orig = dpsr_config.get("only_original_points_split", False)
+    split = dpsr_config.get("split_before_refine", False)
+    include_normals = trainset_config.get("include_normals", True)
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator,
+                   draws: Optional[dict] = None) -> torch.Tensor:
+        draws = draws or {}
+        points, label = batch["points"], batch["label"]
+        normals = batch["normals"]
+        normals = normals / torch.linalg.vector_norm(normals, dim=-1, keepdim=True)
+        x = torch.cat([points, normals if include_normals else torch.zeros_like(points)],
+                      dim=-1)
+        if ae is not None:
+            with torch.no_grad():
+                keypoint = sample_train_keypoints(points, trainset_config, generator,
+                                                  noise=draws.get("keypoint_noise"))
+                noise_fn, _ = _draw_fns(generator, points.device, draws)
+                feat = ae.encode(x, keypoint, label=label, noise_fn=noise_fn)
+                x = ae.decode(keypoint, feat, label=label)
+            if noise_magnitude > 0:
+                b, n, f = x.shape
+                shape = (b, n, dpsr_config["split_factor"], f) if split else (b, n, f)
+                noise = draws.get("ae_noise")
+                if noise is None:
+                    noise = torch.randn(shape, generator=generator, device=generator.device)
+                noise = noise_magnitude * noise.to(x.device)
+                x = (x[:, :, None, :] + noise).reshape(b, -1, f) if split else x + noise
+        if mirror_first:
+            x = mirror_and_concat(x, axis=2, attach_label=True, permute=not only_orig,
+                                  generator=generator, perm=draws.get("perm"))[0]
+        return _step_update(state, upsampler_loss(net, dpsr, x, label, batch["psr"],
+                                                  trainset_config, dpsr_config,
+                                                  pointnet_config))
+
+    return train_step
+
+
+def upsampler_loss(net: nn.Module, dpsr: nn.Module, x: torch.Tensor, label: torch.Tensor,
+                   target: torch.Tensor, trainset_config: dict, dpsr_config: dict,
+                   pointnet_config: dict) -> torch.Tensor:
+    """The SAP loss of a (mirrored and tagged, per the config) cloud `x`: the
+    net's displacements, the split cloud's DPSR grid, its (tanh-)MSE
+    against the `target` grid."""
+    disp = net(x, ts=None, label=label)
+    grid, _, _ = network_output_to_dpsr_grid(
+        x, disp, dpsr, trainset_config["scale"], pointnet_config,
+        last_dim_as_indicator=dpsr_config.get("mirror_before_upsampling", False),
+        only_original_points_split=dpsr_config.get("only_original_points_split", False))
+    if dpsr_config.get("psr_tanh", True):
+        return torch.mean((torch.tanh(grid) - torch.tanh(target)) ** 2)
+    return torch.mean((grid - target) ** 2)
+
+
+def build_upsampler_training(config: dict, *, ae_params=None, seed: int = 0, device=None):
+    """The SAP net (its parameters drawn from `seed`), Adam, the EMA shadows
+    (none with the shipped preset), DPSR on the device, the frozen
+    autoencoder when the config has an `autoencoder_config` and `ae_params`
+    (a flax tree of the whole AE) is given, and the train step:
+    (TrainState, step)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = resolve_device(device)
+    pointnet_config = config["pointnet_config"]
+    dpsr_config = config["dpsr_config"]
+    dpsr = DPSR((dpsr_config["grid_res"],) * 3, sig=dpsr_config["psr_sigma"]).to(dev)
+    net = ConditionalPointNet2(pointnet_config)
+    init_params(net, torch.Generator().manual_seed(seed))
+    state = _new_state(net.to(dev).train(), config["train_config"])
+    ae, noise_magnitude = None, 0.0
+    if config.get("autoencoder_config") and ae_params is not None:
+        ae = build_autoencoder(config["autoencoder_config"]["pointnet_config"])
+        load_flax_params(ae, ae_params)
+        ae = ae.to(dev).eval().requires_grad_(False)
+        noise_magnitude = config["autoencoder_config"].get("noise_magnitude", 0.0)
+    return state, make_upsampler_train_step(net, dpsr, config["shapenet_psr_dataset_config"],
+                                            dpsr_config, pointnet_config, ae=ae,
+                                            noise_magnitude=noise_magnitude)
+
+
+def train_upsampler(config: dict, *, ae_params=None, data_dir: Optional[str] = None,
+                    max_iters: Optional[int] = None, seed: int = 0, device=None,
+                    eval_hook: Optional[Callable] = None, verbose: bool = True):
+    """Train the SAP refine+upsample net against the dataset's DPSR grids
+    (counterpart: the JAX package's `train_upsampler`), optionally on clouds
+    corrupted by a frozen autoencoder's round trip (`ae_params`, with the
+    config's `autoencoder_config`).  Returns (TrainState, [(iter, loss), ...])."""
+    state, step = build_upsampler_training(config, ae_params=ae_params, seed=seed,
+                                           device=device)
     return run_training(config, state, step, data_dir=data_dir, max_iters=max_iters,
                         seed=seed, eval_hook=eval_hook, verbose=verbose)

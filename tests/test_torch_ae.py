@@ -58,8 +58,9 @@ ATOL = 5e-5
 # 6.7e-5 (features up to ~3); the two fp32 runs 1.2e-4 apart
 ENC_ATOL = 3e-4
 # the shipped encoder at 2048 points, features up to ~3.5 (batch 2): the port
-# lies 1.8e-3 from its float64 run, JAX 4.4e-3; port and JAX 4.5e-3 apart
-FULL_ENCODE_ATOL, FULL_ENCODE_F64_ATOL = 1e-2, 4e-3
+# lies 8.0e-6 from its float64 run (1.8e-3 while GroupNorm summed its
+# statistics in fp32), JAX 4.3e-3; port and JAX 4.3e-3 apart
+FULL_ENCODE_ATOL, FULL_ENCODE_F64_ATOL = 1e-2, 5e-5
 GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
 LR = 1e-3
 B, N, K = 2, 200, 16

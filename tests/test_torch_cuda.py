@@ -335,7 +335,18 @@ def test_k2_wrapper_counts_launches_and_checks_inputs(fused_nets):
 # extraction against the numpy oracle, the full-width SAP net (TF32 off).
 
 DPSR_CARD_ATOL = 1e-5       # chip_smoke.py's DPSR_ATOL (measured 5.4e-7 here)
-SAP_NET_CARD_ATOL = 1e-4    # of max(1, max |output|)
+# the full-width SAP net card vs CPU, the card's kNN replayed, of max(1, max
+# |output|): measured 0.00047 of 335.9 (1.4e-6) once GroupNorm sums in
+# float64 (0.0062 before)
+SAP_NET_CARD_ATOL = 1e-5
+# DPSR's gradient (points, normals) card vs CPU at 128^3, of the gradient's
+# largest element: measured 5.7e-7 and 4.7e-7 (the CPU's own distance from
+# float64 3.6e-7)
+DPSR_GRAD_TOL = 5e-6
+# each operation of the SAP net's first SA level in fp32 against float64 on
+# the same input, of the output's size: measured at most 6.7e-7 (the
+# injection MLP) on the card and the CPU, GroupNorms 1.8e-7
+LEVEL0_TOL = 2e-6
 
 
 def _sphere_points(b, n, seed):
@@ -522,15 +533,9 @@ def _float64_by_level(monkeypatch, net, xm, label, knn_calls, picks):
     return out
 
 
-@pytest.mark.cuda
-def test_full_width_sap_net_card_matches_cpu(cuda, monkeypatch):
-    # The KnnFP levels weight each neighbour by 1 / (d + 1e-8), and every
-    # query coincides with one of its neighbours, whose squared distance is
-    # fp32 rounding noise of the order of 1e-8: noise of 1e-8 there moves the
-    # outputs (up to ~340) by 0.03.  So the card's distances and neighbour
-    # sets, held to the CPU's first, are handed to the CPU run.  Both runs
-    # are then read against the float64 forward on the same searches, level
-    # by level, which shows how far each one's own fp32 rounding carries.
+def _sap_net_and_cloud():
+    """The shipped SAP net with the committed weights (eval mode, TF32 off)
+    and an ellipsoid's surface and normals, mirrored: 2 x 2048 points."""
     from slide_tpu_torch.configs import upsampler_config
     from slide_tpu_torch.models import ConditionalPointNet2
     from slide_tpu_torch.pipeline import DEFAULT_CKPTS
@@ -541,7 +546,6 @@ def test_full_width_sap_net_card_matches_cpu(cuda, monkeypatch):
     net = ConditionalPointNet2(upsampler_config()["pointnet_config"])
     load_flax_params(net, load_inference_params(str(DEFAULT_CKPTS["sap"]), -1))
     net.eval()
-    # an ellipsoid's surface and normals, mirrored: 2 x 2048 points
     gen = torch.Generator().manual_seed(0)
     axes = torch.tensor([0.45, 0.15, 0.3])
     p = torch.randn((2, 2048, 3), generator=gen)
@@ -550,7 +554,19 @@ def test_full_width_sap_net_card_matches_cpu(cuda, monkeypatch):
     nrm = nrm / torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
     xm = mirror_and_concat(torch.cat([p, nrm], dim=-1), axis=2, attach_label=True,
                            generator=gen)[0]
-    label = torch.zeros(2, dtype=torch.int64)
+    return net, xm, torch.zeros(2, dtype=torch.int64)
+
+
+@pytest.mark.cuda
+def test_full_width_sap_net_card_matches_cpu(cuda, monkeypatch):
+    # The KnnFP levels weight each neighbour by 1 / (d + 1e-8), and every
+    # query coincides with one of its neighbours, whose squared distance is
+    # fp32 rounding noise of the order of 1e-8: noise of 1e-8 there moves the
+    # outputs (up to ~340) by 0.03.  So the card's distances and neighbour
+    # sets, held to the CPU's first, are handed to the CPU run.  Both runs
+    # are then read against the float64 forward on the same searches, level
+    # by level, which shows how far each one's own fp32 rounding carries.
+    net, xm, label = _sap_net_and_cloud()
     calls = _record_knn(monkeypatch)
     picks = _record_fps(monkeypatch)
     before = _build.launch_counts["fps"]
@@ -577,16 +593,157 @@ def test_full_width_sap_net_card_matches_cpu(cuda, monkeypatch):
     assert err <= SAP_NET_CARD_ATOL * max(1.0, float(want.abs().max()))
 
 
+@pytest.mark.cuda
+def test_sap_level0_rounding_by_operation(cuda):
+    # The full-width SAP net's first SA level, operation by operation: each
+    # is run alone in fp32, on the card and on the CPU, on the input the
+    # float64 run handed it (cast to fp32), and held to the float64 run's
+    # output of that operation, within LEVEL0_TOL of the output's size.
+    # Each GroupNorm also with its statistics summed three ways: over the
+    # strided (rows, channels) axes in fp32, over each group laid out
+    # contiguously in fp32, and so in float64 (the port's form): (mean's
+    # error of max |mean|, var's largest error relative to its group's var,
+    # the output's error of max |output|).  The CPU's strided fp32 sums over
+    # a group's 32768 elements (measured: var 5.8e-5 off, the output 1.4e-5)
+    # are coarser than the card's (3.1e-7, 2.4e-7); the products round alike
+    # on both.
+    import copy
+
+    from slide_tpu_torch.nn.layers import GroupNorm
+    net, xm, label = _sap_net_and_cloud()
+    net64 = copy.deepcopy(net).double()
+    seen, handles = {}, []
+    for name, mod in net64.sa_modules_0.named_modules():
+        if name and not list(mod.children()) or name in ("mlp", "attention"):
+            def keep(m, args, kwargs, out, name=name):
+                seen[name] = (args, kwargs, out.detach())
+            handles.append(mod.register_forward_hook(keep, with_kwargs=True))
+    with torch.no_grad():
+        net64(xm.double(), ts=None, label=label)
+    for h in handles:
+        h.remove()
+    level = net.sa_modules_0
+    rows = {}
+    def cast(a, dev):
+        if not torch.is_tensor(a):
+            return a
+        return a.detach().to(dev, torch.float32 if a.is_floating_point() else a.dtype)
+
+    for name, (args, kwargs, want) in seen.items():
+        mod = level.get_submodule(name)
+        got = {}
+        for dev in ("cpu", cuda):
+            with torch.no_grad():
+                out = mod.to(dev)(*[cast(a, dev) for a in args],
+                                  **{k: cast(v, dev) for k, v in kwargs.items()})
+            got[str(dev)] = out.double().cpu()
+            mod.cpu()
+        size = float(want.abs().max())
+        rows[name] = {k: float((v - want).abs().max()) / size for k, v in got.items()}
+        if isinstance(mod, GroupNorm):
+            x = args[0]
+            xg = x.reshape(x.shape[0], -1, mod.num_groups, x.shape[-1] // mod.num_groups)
+            m64 = xg.mean(dim=(1, 3), keepdim=True)
+            q64 = (xg * xg).mean(dim=(1, 3), keepdim=True)
+            v64 = q64 - m64 * m64
+            rows[name]["mean2_over_var"] = float((q64 / v64).max())
+            forms = {
+                "strided": lambda t: t.mean(dim=(1, 3), keepdim=True),
+                "contiguous": lambda t: t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+                .mean(dim=-1)[:, None, :, None],
+                "contiguous_float64": lambda t: t.transpose(1, 2).reshape(
+                    t.shape[0], t.shape[2], -1).mean(dim=-1, dtype=torch.float64)[:, None, :, None]}
+            w64 = mod.weight.double().reshape(xg.shape[2:])
+            b64 = mod.bias.double().reshape(xg.shape[2:])
+            y64 = (xg - m64) * torch.rsqrt(v64 + mod.eps) * w64 + b64
+            for dev in ("cpu", cuda):
+                x32 = xg.float().to(dev)
+                w, b = w64.float().to(dev), b64.float().to(dev)
+                for form, red in forms.items():
+                    m, q = red(x32).float(), red(x32 * x32).float()
+                    var = torch.maximum(q - m * m, m.new_zeros(()))
+                    y = ((x32 - m) * (torch.rsqrt(var + mod.eps) * w) + b).double().cpu()
+                    m, var = m.double().cpu(), var.double().cpu()
+                    rows[name][f"{dev}_{form}"] = (
+                        float((m - m64).abs().max() / m64.abs().max()),
+                        float(((var - v64) / v64).abs().max()),
+                        float((y - y64).abs().max() / y64.abs().max()))
+    for name, row in rows.items():
+        print(f"  {name}: {row}")
+    assert all(rows[name][k] <= LEVEL0_TOL for name in rows for k in ("cpu", str(cuda)))
+
+
+@pytest.mark.cuda
+def test_dpsr_backward_card_matches_cpu(cuda):
+    # the gradient of sum(tanh(phi) * g) with respect to the points and the
+    # normals at 128^3: the card's raster and grid_interp's backward
+    # (scatter-adds) sum in no fixed order; both fp32 sides are held to the
+    # float64 run
+    from slide_tpu_torch.sap import DPSR
+    v, n = _sphere_points(2, 20480, 1)
+    g = torch.randn((2, 128, 128, 128), generator=torch.Generator().manual_seed(2))
+    grads = {}
+    for key, dev, dtype in (("cpu", "cpu", torch.float32), ("card", cuda, torch.float32),
+                            ("float64", "cpu", torch.float64)):
+        solver = DPSR((128,) * 3, sig=2).to(dev, dtype)
+        vv = v.to(dev, dtype).clone().requires_grad_(True)
+        nn_ = n.to(dev, dtype).clone().requires_grad_(True)
+        (torch.tanh(solver(vv, nn_)) * g.to(dev, dtype)).sum().backward()
+        grads[key] = (vv.grad.double().cpu(), nn_.grad.double().cpu())
+    for i, what in enumerate(("points", "normals")):
+        ref = grads["float64"][i]
+        size = float(ref.abs().max())
+        errs = {k: float((grads[k][i] - ref).abs().max()) for k in ("cpu", "card")}
+        card_cpu = float((grads["card"][i] - grads["cpu"][i]).abs().max())
+        print(f"dpsr d{what}: max {size}, card vs float64 {errs['card']}, cpu vs float64 "
+              f"{errs['cpu']}, card vs cpu {card_cpu}")
+        assert torch.isfinite(grads["card"][i]).all()
+        assert card_cpu <= DPSR_GRAD_TOL * size
+
+
+def _psr_tree(tmp_path, dev):
+    from slide_tpu_torch.data import write_synthetic_shapenet_psr
+    return write_synthetic_shapenet_psr(str(tmp_path / "data"), models_per_split=2,
+                                        num_points=3000, psr_res=128, psr_from_points=True,
+                                        shape_variety=True, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("round_trip", [False, True])
+def test_upsampler_training_step_launches(cuda, tmp_path, round_trip):
+    # the shipped SAP preset at batch 2 on 128^3 grids written on the card:
+    # each step runs K3 in the SAP net's four SA levels; with the committed
+    # AE's round trip also the keypoints (1), the encoder's levels (4) and
+    # the decode's nine calls: 18; never K1 or K2
+    from slide_tpu_torch.configs import autoencoder_config, upsampler_config
+    from slide_tpu_torch.pipeline import DEFAULT_CKPTS
+    from slide_tpu_torch.train.driver import train_upsampler
+    from slide_tpu_torch.weights import load_inference_params
+    cfg = upsampler_config(batch_size=2)
+    cfg["shapenet_psr_dataset_config"].update(categories=["02691156"], repeat_dataset=1)
+    cfg["train_config"].update(root_directory=str(tmp_path / "exp"), iters_per_logging=1)
+    ae_params = None
+    if round_trip:
+        cfg["autoencoder_config"] = autoencoder_config("airplane")
+        cfg["autoencoder_config"]["noise_magnitude"] = 0.02
+        ae_params = load_inference_params(str(DEFAULT_CKPTS["ae"]), -1)
+    root = _psr_tree(tmp_path, cuda)
+    _build.launch_counts.clear()
+    state, losses = train_upsampler(cfg, ae_params=ae_params, data_dir=root, max_iters=2,
+                                    verbose=False)
+    assert state.step == 2 and all(torch.isfinite(torch.tensor([l for _, l in losses])))
+    assert dict(_build.launch_counts) == {"fps": 2 * (18 if round_trip else 4)}
+
+
 # ---------------------------------------------------------------------------
 # Autoencoder and feature-DDPM training on the card: the chamfer losses and
 # `encode` against the CPU, one step of each task with its exact launches.
 
 # encode of the committed AE at full width, card against CPU with the card's
-# kNN picks replayed: the encoder's first layers normalise groups of one
-# channel, so fp32 rounding alone carries features ~1e-3 from float64
-# (tests/test_torch_ae.py); measured 1.59e-3 of 3.24 here (H100 80GB HBM3);
-# the bound is chip_smoke.py's ENCODE_TOL
-ENCODE_CARD_TOL = 2e-3      # of max(1, max |output|)
+# kNN picks replayed: measured 5.2e-6 of 3.24 here (H100 80GB HBM3) once
+# GroupNorm sums its statistics in float64 (1.59e-3 before, the CPU's fp32
+# sums over groups of one channel); the bound is chip_smoke.py's ENCODE_TOL
+ENCODE_CARD_TOL = 5e-5      # of max(1, max |output|)
 
 
 def _ae_cloud(b, n, seed):

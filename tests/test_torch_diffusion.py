@@ -20,7 +20,8 @@ from slide_tpu.diffusion import x0 as jx0
 from slide_tpu.models import ConditionalPointNet2 as JNet
 from slide_tpu_torch import diffusion as td
 from slide_tpu_torch.models import ConditionalPointNet2 as TNet
-from slide_tpu_torch.weights import load_flax_params
+from slide_tpu_torch.train.driver import init_params
+from slide_tpu_torch.weights import load_flax_params, module_to_flax
 from torch_port_helpers import perturb, to_np
 
 
@@ -184,15 +185,12 @@ def _narrow_net(cfg_fn, in_fea_dim, out_dim, seed):
     pc.update(in_fea_dim=in_fea_dim, out_dim=out_dim, t_dim=32, class_condition_dim=16)
     pc["architecture"].update(feature_dim=[16, 32, 32], decoder_feature_dim=[16, 32, 32],
                               mlp_depth=2, decoder_mlp_depth=2)
-    width = 3 + in_fea_dim
-    jnet = JNet(pc)
-    x = jnp.zeros((2, 16, width))
-    ts = jnp.zeros((2,), jnp.int32)
-    params = perturb(jax.jit(lambda k: jnet.init(k, x, ts=ts, label=ts))(
-        jax.random.key(seed))["params"], seed)
-    tnet = TNet(pc)
+    # the weights drawn by the port's init_params (the JAX package's
+    # initialisers) and perturbed: the flax tree both packages load
+    tnet = init_params(TNet(pc), torch.Generator().manual_seed(seed))
+    params = perturb(module_to_flax(tnet), seed)
     load_flax_params(tnet, params)
-    return jnet, params, tnet
+    return JNet(pc), params, tnet
 
 
 def test_eps_chain_with_the_kp_network():

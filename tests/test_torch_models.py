@@ -20,10 +20,11 @@ from slide_tpu.models import ConditionalPointNet2 as JNet
 from slide_tpu.models.upsample_decoder import point_upsample as j_point_upsample
 from slide_tpu.train import build_autoencoder as j_build_ae
 from slide_tpu_torch import models as tm
+from slide_tpu_torch.train.driver import init_params
 from slide_tpu_torch.weights import (flax_to_torch_state, load_flax_params,
-                                     load_inference_params)
+                                     load_inference_params, module_to_flax)
 from torch_port_helpers import (DECODE_ATOL, TRIM_CALLS, assert_close, perturb,
-                                record_jax_fps, replay_fps_in_port, run_pair,
+                                record_jax_fps, replay_fps_in_port,
                                 small_ae_config, to_np, trim_starts)
 
 CKPTS = Path(__file__).resolve().parent.parent / "benchmarks" / "results" / "ckpts"
@@ -51,17 +52,52 @@ def _net_inputs(seed, b, n, width, t_max):
     return x, ts, label
 
 
+_NARROW = {}
+
+
+def _narrow_pair(spec):
+    """The narrow denoiser of `spec` and its flax init and apply, jitted once
+    for the module (the inputs are arguments, so both seeds share them)."""
+    if spec not in _NARROW:
+        if spec == "kp":
+            pc = _narrow(keypoint_ddpm_config()["pointnet_config"], 0, 3)
+        else:
+            pc = _narrow(latent_ddpm_config()["pointnet_config"], 8, 11)
+        jnet = JNet(pc)
+        _NARROW[spec] = (pc, jax.jit(lambda k, x, ts, lbl: jnet.init(k, x, ts=ts, label=lbl)),
+                         jax.jit(lambda p, x, ts, lbl: jnet.apply({"params": p}, x, ts=ts,
+                                                                  label=lbl)))
+    return _NARROW[spec]
+
+
 @pytest.mark.parametrize("spec", ["kp", "latent"])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_denoiser_narrow(spec, seed):
-    if spec == "kp":
-        pc = _narrow(keypoint_ddpm_config()["pointnet_config"], 0, 3)
-    else:
-        pc = _narrow(latent_ddpm_config()["pointnet_config"], 8, 11)
+    # run_pair's steps: init the flax net, perturb, copy into the port, run both
+    pc, j_init, j_apply = _narrow_pair(spec)
     x, ts, label = _net_inputs(seed, 2, 16, 3 + pc["in_fea_dim"], 50)
-    jout, tout, _ = run_pair(JNet(pc), tm.ConditionalPointNet2(pc), [x],
-                             {"ts": ts, "label": label}, seed=seed)
+    args = [jnp.asarray(a) for a in (x, ts, label)]
+    params = perturb(j_init(jax.random.key(seed), *args)["params"], seed)
+    jout = j_apply(params, *args)
+    net = load_flax_params(tm.ConditionalPointNet2(pc), params)
+    with torch.no_grad():
+        tout = net(torch.as_tensor(x), ts=torch.as_tensor(ts), label=torch.as_tensor(label))
     assert_close(jout, tout, ATOL)
+
+
+def test_class_embeddings_are_drawn_at_the_jax_scale():
+    # flax's nn.Embed with normal(1.0) in the JAX package's nets; the port's
+    # init_params draws the same N(0, 1) (312 entries: the sample deviation
+    # lies within 20% of 1, where N(0, 1/features) would give 0.2)
+    pc, j_init, _ = _narrow_pair("latent")
+    x, ts, label = _net_inputs(0, 2, 16, 3 + pc["in_fea_dim"], 50)
+    jemb = np.asarray(j_init(jax.random.key(3), *[jnp.asarray(a) for a in (x, ts, label)])
+                      ["params"]["class_emb"]["embedding"])
+    temb = init_params(tm.ConditionalPointNet2(pc), torch.Generator().manual_seed(3)) \
+        .class_emb.weight.detach().numpy()
+    assert jemb.shape == temb.shape == (13, pc["class_condition_dim"])
+    print(f"class embeddings' deviation: jax {jemb.std()}, port {temb.std()}")
+    assert abs(jemb.std() - 1.0) < 0.2 and abs(temb.std() - 1.0) < 0.2
 
 
 def test_denoiser_without_head_as_decoder_backbone():
@@ -70,8 +106,16 @@ def test_denoiser_without_head_as_decoder_backbone():
                               feature_dim=[16, 16, 32, 32],
                               decoder_feature_dim=[32, 32, 32, 32])
     x, _, label = _net_inputs(3, 2, 48, 6, 1)
-    jout, tout, _ = run_pair(JNet(pc), tm.ConditionalPointNet2(pc), [x],
-                             {"label": label}, seed=3)
+    # the weights drawn by the port's init_params (the JAX package's
+    # initialisers), perturbed, then run by both packages
+    net = init_params(tm.ConditionalPointNet2(pc), torch.Generator().manual_seed(3))
+    params = perturb(module_to_flax(net), 3)
+    load_flax_params(net, params)
+    jnet = JNet(pc)
+    jout = jax.jit(lambda p: jnet.apply({"params": p}, jnp.asarray(x),
+                                        label=jnp.asarray(label)))(params)
+    with torch.no_grad():
+        tout = net(torch.as_tensor(x), label=torch.as_tensor(label))
     assert tout.shape == (2, 48, 32)
     assert_close(jout, tout, ATOL)
 
@@ -97,11 +141,10 @@ def test_point_upsample(first_refine, center):
     np.testing.assert_allclose(to_np(got), to_np(want), atol=1e-6)
 
 
-@pytest.mark.parametrize("random_starts", [True, False])
-def test_autoencoder_decode_small(monkeypatch, random_starts):
-    """Decode against the JAX decode, with the FPS record / replay of
-    `torch_port_helpers` (every FPS call held to exact equality on the JAX
-    cloud, and the JAX indices taken, so near-ties cannot fork the runs)."""
+@pytest.fixture(scope="module")
+def small_decode():
+    """`small_ae_config`'s flax autoencoder, a decode input and the decode's
+    perturbed flax parameters (one init for the module)."""
     cfg = small_ae_config()
     jae = j_build_ae(cfg)
     rng = np.random.default_rng(5)
@@ -112,8 +155,16 @@ def test_autoencoder_decode_small(monkeypatch, random_starts):
     variables = jax.jit(lambda key: jae.init({"params": key}, *args,
                                              label=jnp.asarray(label),
                                              method=jae.decode))(jax.random.key(0))
-    params = perturb(variables["params"], 0, scale=0.05)
+    return cfg, jae, kp, feat, label, perturb(variables["params"], 0, scale=0.05)
 
+
+@pytest.mark.parametrize("random_starts", [True, False])
+def test_autoencoder_decode_small(monkeypatch, small_decode, random_starts):
+    """Decode against the JAX decode, with the FPS record / replay of
+    `torch_port_helpers` (every FPS call held to exact equality on the JAX
+    cloud, and the JAX indices taken, so near-ties cannot fork the runs)."""
+    cfg, jae, kp, feat, label, params = small_decode
+    args = (jnp.asarray(kp), jnp.asarray(feat))
     calls = record_jax_fps(monkeypatch)
     rngs = {"fps": jax.random.key(7)} if random_starts else {}
     want = jax.jit(lambda p: jae.apply({"params": p}, *args, label=jnp.asarray(label),

@@ -53,6 +53,37 @@ def test_tail_group_norm(groups, channels, shape):
         np.testing.assert_array_equal(to_np(tout)[..., -3:], x[..., -3:])
 
 
+@pytest.mark.parametrize("channels_per_group", [1, 2])
+def test_group_norm_statistics_sum_in_float64(channels_per_group):
+    # a GroupNorm over (points x neighbours) rows with a mean of ~2 spreads:
+    # E[x^2] - E[x]^2 cancels, and fp32 sums over the strided (rows,
+    # channels) axes (the CPU's reduction) carry the output ~1e-5 off; the
+    # port sums each group laid out contiguously, in float64, and stays at
+    # the output's own fp32 rounding, for fp32 input, and runs wholly in
+    # float64 for float64 input
+    g = 32
+    c = g * channels_per_group
+    gen = torch.Generator().manual_seed(0)
+    x = (2.0 + torch.randn((2, 1024, 32, c), generator=gen, dtype=torch.float64)) * \
+        torch.linspace(0.5, 3.0, c, dtype=torch.float64)
+    norm = tnn.GroupNorm(g, c)
+    with torch.no_grad():
+        norm.weight.copy_(torch.linspace(0.5, 1.5, c))
+        norm.bias.copy_(torch.linspace(-0.2, 0.2, c))
+        want = norm.double()(x)
+        got = norm.float()(x.float()).double()
+        xg = x.float().reshape(2, -1, g, channels_per_group)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = (xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean
+        strided = ((xg - mean) * torch.rsqrt(var + norm.eps) * norm.weight.reshape(g, -1)
+                   + norm.bias.reshape(g, -1)).reshape(x.shape).double()
+    size = float(want.abs().max())
+    err, err_strided = float((got - want).abs().max()) / size, \
+        float((strided - want).abs().max()) / size
+    print(f"of the output's size: the port {err}, strided fp32 sums {err_strided}")
+    assert want.dtype == torch.float64 and err <= 1e-6
+
+
 @pytest.mark.parametrize("bn_first,truncate_last,bias", [(False, False, False),
                                                          (True, False, True),
                                                          (False, True, True)])

@@ -13,14 +13,14 @@ sides, sums in other orders):
   - mirror, normalize, the grid of `network_output_to_dpsr_grid`: 1e-6;
   - the SAP net, held to JAX and, on the same FPS picks, to its own forward
     run in float64, which shows how far fp32 itself carries (`pytest -rP`
-    prints the three distances): narrow (perturbed weights), 1e-3 of JAX
-    on outputs up to ~3.4 and 5e-4 of float64 (measured 2.3e-4 and 2.0e-4;
-    JAX's own fp32 forward lies 4.3e-4 from the float64 one); at full width
-    with the committed checkpoint, 0.2 of JAX on displacements up to ~313
-    and 2e-3 of float64 (measured: JAX's fp32 forward 0.0952 from the
-    float64 one, the port's 4.3e-4, so what separates the two is JAX's fp32
-    rounding, through the KnnFP weights' self-distances: see the last test;
-    0.2 is twice it).
+    prints the three distances): narrow (perturbed weights drawn by the
+    port's init), 1e-3 of JAX on outputs up to ~3.2 and 5e-4 of float64
+    (measured 4.5e-4 and 1.5e-4; JAX's own fp32 forward lies 4.6e-4 from the
+    float64 one); at full width with the committed checkpoint, 0.2 of JAX on
+    displacements up to ~313 and 2e-3 of float64 (measured: JAX's fp32
+    forward 0.0954 from the float64 one, the port's 5.0e-4, so what
+    separates the two is JAX's fp32 rounding, through the KnnFP weights'
+    self-distances: see the last test; 0.2 is twice it).
 The FPS picks of the SAP net's SA levels are JAX's, replayed; the port's
 own picks on the same clouds must equal them or part from them at a tie
 (`torch_port_helpers.fps_ties`): the mirrored cloud holds pairs of points at
@@ -47,7 +47,8 @@ from slide_tpu_torch.ops import furthest_point_sample
 from slide_tpu_torch.pipeline import DEFAULT_CKPTS
 from slide_tpu_torch.sap import dpsr, refine
 from slide_tpu_torch.sap.mirror import mirror, mirror_and_concat
-from slide_tpu_torch.weights import load_flax_params, load_inference_params
+from slide_tpu_torch.train.driver import init_params
+from slide_tpu_torch.weights import load_flax_params, load_inference_params, module_to_flax
 from torch_port_helpers import (fps_ties, narrow_sap_config, perturb, record_jax_fps,
                                 replay_fps_in_port, to_np)
 
@@ -234,11 +235,11 @@ def test_narrow_sap_net_matches_flax(monkeypatch):
     cfg = narrow_sap_config()
     x = _oriented_cloud(2, 100, 6)
     key = jax.random.key(1)
-    j_net = JNet(cfg["pointnet_config"])
-    variables = jax.jit(lambda k: j_net.init(k, jnp.zeros((2, 200, 7)), ts=None,
-                                             label=jnp.zeros((2,), jnp.int32)))(
-        jax.random.key(0))
-    params = perturb(variables["params"], 0, scale=0.05)
+    # the weights drawn by the port's init_params (the JAX package's
+    # initialisers) and perturbed: the flax tree both packages load
+    net = init_params(ConditionalPointNet2(cfg["pointnet_config"]),
+                      torch.Generator().manual_seed(0))
+    params = perturb(module_to_flax(net), 0, scale=0.05)
     net, txm, want, got, calls = _sap_pair(monkeypatch, cfg, params, x, key)
     assert got.shape == (2, 200, 30)
     _report(got, want, _float64_forward(monkeypatch, net, txm, calls),

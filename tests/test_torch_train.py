@@ -657,8 +657,10 @@ def test_synthetic_tree_and_batches_equal_jax(tmp_path):
             assert jb[k] == tb[k]
         else:
             np.testing.assert_array_equal(jb[k], tb[k])
-    with pytest.raises(NotImplementedError, match="DPSR"):
-        tdata.write_synthetic_shapenet_psr(str(tmp_path / "p"), psr_from_points=True)
+    # psr_from_points solves DPSR on the card unless the caller asks for the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tdata.write_synthetic_shapenet_psr(str(tmp_path / "p"), psr_from_points=True)
 
 
 def test_train_position_ddpm_checkpoints_and_resumes(tmp_path):

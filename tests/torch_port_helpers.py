@@ -147,6 +147,22 @@ def narrow_sap_config():
     return cfg
 
 
+def train_sap_config():
+    """`narrow_sap_config` cut to two SA levels (96 and 24 centers), each SA
+    and FP level 128 channels wide: the upsampler step's tests run it.  At
+    the narrow widths the GroupNorms of the first levels normalise single
+    channels, whose fp32 statistics cancel: the narrow net's gradient lay
+    2.9e-2 (port) and 1.3e-2 (JAX) of its largest element from the port's
+    float64 run, and still 4.7e-3 and 5.4e-3 at 64 channels; at 128 (groups
+    of four) 5.4e-4 and 2.2e-3.  The four-level net is held to JAX in
+    tests/test_torch_sap.py; two levels halve JAX's compile of the step."""
+    cfg = narrow_sap_config()
+    cfg["pointnet_config"]["architecture"].update(
+        npoint=[96, 24], nsample=[8, 8], radius=[0.1, 0.2], feature_dim=[128] * 3,
+        decoder_feature_dim=[128] * 3)
+    return cfg
+
+
 def record_jax_fps(monkeypatch):
     """Record every FPS call of the JAX autoencoder (its trims, SA levels
     and training targets), in order, as [cloud, start (B,), indices]; works
@@ -266,10 +282,10 @@ def assert_trees_close(got, want, rtol, atol):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-def assert_one_adam_step(state, new_params, opt_state, rtol=5e-3, atol=1e-4):
+def assert_one_adam_step(state, new_params, opt_state, rtol=5e-3, atol=1e-4, sure=1e-3):
     """The port's `TrainState` after one Adam step against optax's: the
     count; |g| read back from each moment (mu = 0.1 g, nu = 1e-3 g^2) at the
-    gradient tolerance; the parameters 1e-6 where |g| > 1e-3 (the step's
+    gradient tolerance; the parameters 1e-6 where |g| > `sure` (the step's
     sign is beyond doubt there), else within the 2 lr a sign decided
     otherwise could move them."""
     from slide_tpu_torch.train.driver import adam_state_tree
@@ -284,5 +300,5 @@ def assert_one_adam_step(state, new_params, opt_state, rtol=5e-3, atol=1e-4):
     for g, w, a in zip(flax_leaves(module_to_flax(state.net)), jax.tree.leaves(new_params),
                        jax.tree.leaves(g_abs)):
         err = np.abs(g - np.asarray(w))
-        assert float(err[a > 1e-3].max(initial=0)) <= 1e-6
+        assert float(err[a > sure].max(initial=0)) <= 1e-6
         assert float(err.max()) <= 2 * lr + 1e-6
