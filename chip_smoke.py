@@ -22,7 +22,8 @@ line each as soon as it ends:
            whether it is the net's own plan; the kernel at batch 16 under
            that plan against the plain version (atol 1e-4), and its ms
   k1       the fused-denoiser kernel against its plain PyTorch version, kp
-           and latent nets with the committed weights, batch 16 and 5:
+           and latent nets with the committed weights, batch 16, 5 and 64
+           (the presets' eval batch):
            max abs error (atol 1e-4); kernel ms, plain ms, the eager module's
            ms (the unfused forward, the yardstick) and the bound (the weight
            dots as 3xTF32 on the tensor cores, which is what the kernel runs;
@@ -106,6 +107,27 @@ line each as soon as it ends:
            and profiled run as above, the peak memory; then a few steps
            with the committed AE's round trip in front (exactly
            SAP_AE_FPS_PER_STEP FPS launches a step)
+  eval     the checkpoint-time evaluations through the training driver's
+           hooks (`train/driver.py::make_*_eval_hook`), with the committed
+           checkpoints (raw weights and every EMA shadow they hold): the
+           position DDPM's at the shipped eval_batch_size 64 and
+           num_samples_tested 128, T=1000, fused (exactly T x batches x
+           weight sets K1 launches, no FPS); the feature DDPM's over the
+           committed AE on the airplane tree's train split (16 shapes: the
+           conditional evaluation subsamples that split), T=1000 (K1 and
+           FPS exact); the autoencoder's (the visual and the three
+           quantitative passes, exactly AE_FPS_PER_STEP FPS a batch); the
+           SAP net's grid L2 on the SAP tree's val split (exactly
+           len(SAP_FPS) FPS a batch); seconds per hook and the files each
+           writes; `reconstruct_meshes` on RECON_SHAPES shapes (meshes,
+           clouds, points sampled from the meshes; the first mesh against
+           the numpy oracle on its grid); `compute_all_metrics` of the
+           feature DDPM's clouds against the tree's 2048-point val clouds on
+           the card, seconds; the EMD of EMD_CHECK pairs card vs CPU
+           (EMD_CARD_RTOL) and the EMD's ms per pair at 2048 points.  The
+           inputs of the first launch of each K1 and FPS shape of the
+           phase are kept; after it (uncounted) each is held against its
+           plain version: FPS indices equal, K1 within K1_ATOL
 
 Then the nvidia-smi line, one JSON line of kernel figures, and the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
@@ -117,6 +139,7 @@ import ctypes
 import faulthandler
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -144,7 +167,7 @@ from slide_tpu_torch.sap import (DPSR, count_cells_and_faces, marching_tetrahedr
                                  network_output_to_dpsr_grid, point_rasterize)
 from slide_tpu_torch.train import driver as train_driver
 from slide_tpu_torch.train.checkpoint import find_max_iter
-from slide_tpu_torch.weights import load_flax_params, load_inference_params
+from slide_tpu_torch.weights import load_flax_params, load_inference_params, read_checkpoint
 
 # the mesh gate, shared with the tests (numpy only)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -156,7 +179,8 @@ BATCH = 16
 T_STEPS = 1000
 T_UNFUSED = 100        # the unfused slice, cut so that the run stays short
 FASTDPM_STEPS = 50
-K1_BATCHES = (16, 5)
+# the main path's batch, an odd one, and the presets' eval batch
+K1_BATCHES = (16, 5, 64)
 K1_ATOL = 1e-4
 NET_ATOL = 1e-4
 K2_BATCHES = (32, 5)   # the kp preset's training batch, and an odd one
@@ -235,6 +259,22 @@ ENCODE_CHECK = 4
 # features' size (H100 80GB HBM3), since GroupNorm sums its statistics in
 # float64 (1.12e-3 and 1.59e-3 before: the CPU's fp32 sums)
 ENCODE_TOL = 5e-5
+# the checkpoint-time evaluations: the shipped presets' eval batch and test
+# set (kp, latent, AE), the iteration tag of the files they write; the
+# conditional (latent) evaluation subsamples the train split, which holds
+# 16 shapes of the tree (cut from 128)
+EVAL_BATCH, EVAL_SAMPLES = 64, 128
+LATENT_EVAL_SAMPLES = 16
+EVAL_ITER = 99
+# the shapes `reconstruct_meshes` takes from the SAP tree's val split, in
+# two batches
+RECON_SHAPES = 8
+# the EMD of the first EMD_CHECK pairs (generated cloud, reference), card
+# against CPU: within EMD_CARD_RTOL of the CPU's, relative (fp32 sums in
+# other orders, through weights exp(-16384 d) that multiply a rounding gap
+# of d by 16384)
+EMD_CHECK = 4
+EMD_CARD_RTOL = 1e-4
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -1277,6 +1317,265 @@ def phase_train_sap(dev, tmp: str) -> dict:
     return {**res, "grad": grad, "peak_memory_bytes": peak, "ae_launches": ae_launches}
 
 
+def _committed_weights(net_fn, path: str, dev):
+    """The committed checkpoint's net on the card (raw weights) and its EMA
+    shadows as the training state holds them (lists of tensors parallel to
+    the net's parameters)."""
+    net = net_fn()
+    load_flax_params(net, load_inference_params(path, -1))
+    shadows = []
+    for i in range(len(read_checkpoint(path).get("ema_state_list") or [])):
+        m = net_fn()
+        load_flax_params(m, load_inference_params(path, i))
+        shadows.append([p.detach().to(dev) for p in m.parameters()])
+    return net.to(dev).eval(), shadows
+
+
+class KernelInputs:
+    """The inputs of the first launch of each kernel shape while `recording`
+    is on: the wrappers are wrapped for that time, call through to the
+    kernels and count as they always do; `check` then holds the kernel at
+    each shape, on those inputs, against its plain version."""
+
+    def __init__(self):
+        self.fps, self.k1 = {}, {}
+
+    @contextlib.contextmanager
+    def recording(self):
+        real_fps, real_k1 = fps_mod.fps_cuda, fd.fused_forward_cuda
+
+        def fps(xyz, k, start, num_forced=0):
+            key = (*xyz.shape, k, num_forced)
+            if key not in self.fps:
+                self.fps[key] = (xyz.clone(), start.clone())
+            return real_fps(xyz, k, start, num_forced)
+
+        def k1(packed, pc, t4, cls, flat=None):
+            key = tuple(pc.shape)
+            if key not in self.k1:
+                self.k1[key] = (packed, pc.clone(), t4.clone(), cls.clone(), flat)
+            return real_k1(packed, pc, t4, cls, flat)
+
+        fps_mod.fps_cuda, fd.fused_forward_cuda = fps, k1
+        try:
+            yield self
+        finally:
+            fps_mod.fps_cuda, fd.fused_forward_cuda = real_fps, real_k1
+
+    def check(self, phase: str) -> float:
+        """Each kept shape's kernel against its plain version: FPS indices
+        equal, K1 within K1_ATOL.  Returns K1's largest error."""
+        for (b, n, d, k, forced), (xyz, start) in sorted(self.fps.items()):
+            got = fps_mod.fps_cuda(xyz, k, start, forced)
+            want = fps_mod.fps_plain(xyz, k, start, forced)
+            torch.cuda.synchronize()
+            equal = torch.equal(got, want)
+            log(f"{phase}_k3", n=n, k=k, batch=b, d=d, forced=forced, equal=equal)
+            if not equal:
+                raise AssertionError(f"{phase}: fps N={n} K={k} batch {b}: "
+                                     f"{int((got != want).sum())} indices differ")
+        max_err = 0.0
+        for shape, (packed, pc, t4, cls, flat) in sorted(self.k1.items()):
+            with torch.no_grad():
+                got = fd.fused_forward_cuda(packed, pc, t4, cls, flat)
+                want = fd.fused_forward_plain(None, packed, pc, t4, cls, flat)
+            err = float((got - want).abs().max())
+            max_err = max(max_err, err)
+            log(f"{phase}_k1", shape=list(shape), max_abs_err=err, atol=K1_ATOL)
+            if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{phase}: K1 at {list(shape)}: kernel and plain "
+                                     f"differ by {err}")
+        return max_err
+
+
+def run_hook(name: str, hook, net, shadows, expected: dict, files: list) -> dict:
+    """One checkpoint's evaluation through a training hook: seconds, the
+    kernel launches (exactly `expected`), the files it writes."""
+    _build.launch_counts.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hook(net, shadows, EVAL_ITER)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    missing = [f for f in files if not os.path.isfile(f)]
+    log(f"eval_{name}", seconds=seconds, launches=launches, expected=expected,
+        weight_sets=1 + len(shadows), files=len(files), missing=missing)
+    if missing or any(launches.get(k, 0) != n for k, n in expected.items()):
+        raise AssertionError(f"eval_{name}: launches {launches}, expected {expected}; "
+                             f"missing {missing}")
+    return {"launches": launches, "seconds": seconds}
+
+
+def phase_eval(dev, root: str, sap_root: str, tmp: str) -> tuple[dict, float]:
+    """The evaluations (`run_evals`), then every kernel shape they launched
+    held against its plain version on the inputs it had there: (the
+    evaluations' results, K1's largest error in that check)."""
+    inputs = KernelInputs()
+    with inputs.recording():
+        res = run_evals(dev, root, sap_root, tmp)
+    return res, inputs.check("eval")
+
+
+def run_evals(dev, root: str, sap_root: str, tmp: str) -> dict:
+    """The four training tasks' checkpoint-time evaluations, the mesh
+    reconstruction and the metrics, with the committed checkpoints."""
+    from slide_tpu_torch.eval import compute_all_metrics, jsd_between_point_cloud_sets
+    from slide_tpu_torch.eval import mesh_recon
+    from slide_tpu_torch.eval.generation import generated_file
+    from slide_tpu_torch.ops.emd import earth_mover_distance
+    res = {}
+
+    def files(cfg, name, weight_sets):
+        base = os.path.join(train_driver.experiment_dirs(cfg)[0], "eval_result")
+        rates = cfg["train_config"]["ema_rate"][:weight_sets - 1]
+        return [os.path.join(base, name)] + [os.path.join(base, f"model_ema_{r:.5f}", name)
+                                             for r in rates]
+
+    # the position DDPM: 128 shapes in batches of 64, T=1000, every weight set
+    cfg = _task_config(keypoint_ddpm_config("airplane"), root, os.path.join(tmp, "eval_kp"))
+    trainset = cfg["shapenet_psr_dataset_config"]
+    assert (trainset["eval_batch_size"], trainset["num_samples_tested"]) == \
+        (EVAL_BATCH, EVAL_SAMPLES)
+    net, shadows = _committed_weights(lambda: ConditionalPointNet2(cfg["pointnet_config"]),
+                                      str(DEFAULT_CKPTS["kp"]), dev)
+    batches = -(-EVAL_SAMPLES // EVAL_BATCH)
+    name = os.path.basename(generated_file("", trainset["num_keypoints"], 0, 1,
+                                           f"_iter_{EVAL_ITER}"))
+    kp_files = files(cfg, name, 1 + len(shadows))
+    res["kp"] = run_hook("kp", train_driver.make_generation_eval_hook(cfg), net, shadows,
+                         {"fused_denoiser": T_STEPS * batches * (1 + len(shadows)), "fps": 0},
+                         kp_files)
+    with np.load(kp_files[0]) as d:
+        kp_ok = d["points"].shape == (EVAL_SAMPLES, 16, 3) and bool(np.isfinite(d["points"]).all())
+    if not kp_ok:
+        raise AssertionError("eval_kp: the generated keypoints are not (128, 16, 3) finite")
+
+    # the feature DDPM over the committed AE, keypoints from the train split
+    cfg = _task_config(latent_ddpm_config("airplane"), root, os.path.join(tmp, "eval_lat"))
+    trainset = cfg["shapenet_psr_dataset_config"]
+    trainset["num_samples_tested"] = LATENT_EVAL_SAMPLES
+    ae_params = load_inference_params(str(DEFAULT_CKPTS["ae"]), -1)
+    net, shadows = _committed_weights(lambda: ConditionalPointNet2(cfg["pointnet_config"]),
+                                      str(DEFAULT_CKPTS["lat"]), dev)
+    name = os.path.basename(generated_file("", trainset["npoints"], 0, 1,
+                                           f"_iter_{EVAL_ITER}"))
+    lat_files = files(cfg, name, 1 + len(shadows))
+    sets = 1 + len(shadows)
+    res["latent"] = run_hook(
+        "latent", train_driver.make_latent_eval_hook(cfg, ae_params), net, shadows,
+        {"fused_denoiser": T_STEPS * sets, "fps": (1 + len(DECODE_FPS)) * sets}, lat_files)
+    with np.load(lat_files[0]) as d:
+        generated = d["points"][..., :3]
+    if generated.shape != (LATENT_EVAL_SAMPLES, 2048, 3) or not np.isfinite(generated).all():
+        raise AssertionError(f"eval_latent: generated clouds {generated.shape}, not finite")
+
+    # the autoencoder: its visual and quantitative passes
+    cfg = _task_config(autoencoder_config("airplane"), root, os.path.join(tmp, "eval_ae"))
+    ae = build_autoencoder(cfg["pointnet_config"])
+    load_flax_params(ae, ae_params)
+    trainset = cfg["shapenet_psr_dataset_config"]
+    # batches: the val split's at the eval batch size, three times; the train
+    # split's (repeated) at the training batch size, as the loaders give them
+    n_val = len(get_dataloader(dict(trainset, repeat_dataset=1), phase="val").dataset)
+    n_train = len(get_dataloader(trainset, phase="train").dataset)
+    passes = 3 * -(-n_val // EVAL_BATCH) + -(-n_train // trainset["batch_size"])
+    base = os.path.join(train_driver.experiment_dirs(cfg)[0], "eval_result")
+    quant = "shapenet_psr_autoencoder_quantitative_eval_result.pkl"
+    ae_files = [os.path.join(base, "shapenet_psr_autoencoder_visualization_result_iteration_"
+                             f"{EVAL_ITER:08d}_epoch_0000.pkl")] + \
+        [os.path.join(base, sub, quant) for sub in ("trainset_eval", "valset_eval",
+                                                    "valset_eval_keypoint_noise_0")]
+    res["ae"] = run_hook("ae", train_driver.make_ae_eval_hook(cfg), ae.to(dev).eval(), [],
+                         {"fps": AE_FPS_PER_STEP * passes, "fused_denoiser": 0}, ae_files)
+
+    # the SAP net's grid L2 on the SAP tree's val split
+    cfg = _task_config(upsampler_config(), sap_root, os.path.join(tmp, "eval_sap"))
+    trainset = cfg["shapenet_psr_dataset_config"]
+    trainset["categories"] = list(SAP_CATEGORIES)
+    sap_net, _ = _committed_weights(lambda: ConditionalPointNet2(cfg["pointnet_config"]),
+                                    str(DEFAULT_CKPTS["sap"]), dev)
+    n_val = len(get_dataloader(trainset, phase="val").dataset)
+    base = os.path.join(train_driver.experiment_dirs(cfg)[0], "eval_result")
+    res["sap"] = run_hook("sap", train_driver.make_sap_eval_hook(cfg), sap_net, [],
+                          {"fps": len(SAP_FPS) * -(-n_val // trainset["eval_batch_size"]),
+                           "fused_denoiser": 0},
+                          [os.path.join(base, "shapenet_psr_dpsr_eval_result.pkl")])
+    with open(os.path.join(base, "shapenet_psr_dpsr_eval_result.pkl"), "rb") as f:
+        sap_loss = pickle.load(f)["dpsr_grid_L2_loss"]
+
+    # the mesh reconstruction of a few shapes, the first mesh against the
+    # numpy oracle on its grid
+    dc = cfg["dpsr_config"]
+    dpsr = DPSR((dc["grid_res"],) * 3, sig=dc["psr_sigma"]).to(dev)
+    recon_set = dict(trainset, categories=[SAP_CATEGORIES[0]], eval_batch_size=RECON_SHAPES // 2)
+    grids, meshes = [], []
+    real_march, real_host = mesh_recon.marching_tetrahedra_device, mesh_recon.mesh_to_host
+
+    def marching(grid):
+        grids.append(grid[:1].clone())
+        return real_march(grid)
+
+    def to_host(mesh, i):
+        meshes.append(real_host(mesh, i))
+        return meshes[-1]
+
+    mesh_recon.marching_tetrahedra_device, mesh_recon.mesh_to_host = marching, to_host
+    _build.launch_counts.clear()
+    try:
+        t0 = time.perf_counter()
+        vis = mesh_recon.reconstruct_meshes(
+            sap_net, dpsr, get_dataloader(recon_set, phase="val", seed=0),
+            cfg["pointnet_config"], dc, recon_set, os.path.join(tmp, "recon"),
+            iteration=EVAL_ITER, scale=trainset["scale"], do_sample_points_from_mesh=True,
+            return_original_scale=True, device=dev)
+        torch.cuda.synchronize()
+        recon_s = time.perf_counter() - t0
+    finally:
+        mesh_recon.marching_tetrahedra_device, mesh_recon.mesh_to_host = real_march, real_host
+    recon_launches = dict(_build.launch_counts)
+    written = sorted(os.listdir(os.path.join(vis, "reconstructed_mesh")))
+    # the first shape's mesh (in the grid's [0, 1) frame, before the move
+    # back to its cloud's scale) against the numpy oracle on its grid
+    vol = grids[0][0].cpu().numpy()
+    diff = mesh_difference(meshes[0], marching_tetrahedra_numpy(vol), vol.shape[-1])
+    with np.load(os.path.join(vis, "points_sampled_from_mesh.npz")) as d:
+        sampled = d["points"].shape
+    log("eval_reconstruct", shapes=RECON_SHAPES, seconds=recon_s, launches=recon_launches,
+        meshes=len(written), sampled=list(sampled), first_mesh=diff)
+    if len(written) != RECON_SHAPES or recon_launches.get("fps", 0) != 2 * len(SAP_FPS) \
+            or not diff.get("same_faces") or diff["vert_err"] > MESH_VERT_ATOL \
+            or diff["normal_err"] > MESH_NORMAL_ATOL:
+        raise AssertionError(f"eval_reconstruct: {len(written)} meshes, {recon_launches}, "
+                             f"first mesh {diff}")
+
+    # the metrics: the feature DDPM's clouds against the tree's val clouds
+    refs = next(iter(get_dataloader(dict(_task_config(
+        latent_ddpm_config("airplane"), root, tmp)["shapenet_psr_dataset_config"],
+        eval_batch_size=LATENT_EVAL_SAMPLES, repeat_dataset=1), phase="val", seed=0)))["points"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = compute_all_metrics(generated, refs, batch_size=32, device=dev)
+    torch.cuda.synchronize()
+    metrics_s = time.perf_counter() - t0
+    jsd = jsd_between_point_cloud_sets(generated, refs)
+    a = torch.as_tensor(generated, device=dev)
+    b = torch.as_tensor(refs, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        card = earth_mover_distance(a[:EMD_CHECK], b[:EMD_CHECK]).cpu()
+        cpu = earth_mover_distance(a[:EMD_CHECK].cpu(), b[:EMD_CHECK].cpu())
+        emd_ms = cuda_ms(lambda: earth_mover_distance(a, b), 3) / len(a)
+    emd_err = float(((card - cpu).abs() / cpu.abs()).max())
+    log("eval_metrics", samples=len(generated), refs=len(refs), points=2048,
+        seconds=metrics_s, metrics={k: float(v) for k, v in metrics.items()}, jsd=jsd,
+        emd_card=card.tolist(), emd_cpu=cpu.tolist(), emd_card_vs_cpu=emd_err,
+        emd_rtol=EMD_CARD_RTOL, emd_ms_per_pair=emd_ms, sap_grid_l2=sap_loss)
+    if not (emd_err <= EMD_CARD_RTOL and all(np.isfinite(list(metrics.values())))):
+        raise AssertionError(f"eval_metrics: EMD card vs CPU {emd_err}, metrics {metrics}")
+    res["reconstruct"] = {"launches": recon_launches, "seconds": recon_s}
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1329,9 +1628,13 @@ def main():
         log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
         tasks = {"kp": phase_train(dev, root, tmp), "ae": phase_train_ae(dev, root, tmp),
                  "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp)}
+        evals, eval_k1_err = phase_eval(dev, root, os.path.join(tmp, "shapenet_psr_sap"), tmp)
 
     def per_task(name):
         return {task: res["launches"].get(name, 0) for task, res in tasks.items()}
+
+    def per_eval(name):
+        return {hook: res["launches"].get(name, 0) for hook, res in evals.items()}
 
     def fps_sum(calls, b):
         """ms, plain ms and bound of the FPS calls `calls` at batch b, summed."""
@@ -1357,6 +1660,7 @@ def main():
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "launches_train": per_task("fps"),
+        "launches_eval": per_eval("fps"),
         "decode_ms": fps_sum(DECODE_FPS, BATCH)[0],
         "sap_ms": fps_sum(SAP_FPS, BATCH)[0], "sap_plain_ms": fps_sum(SAP_FPS, BATCH)[1],
         "sap_bound_ms": fps_sum(SAP_FPS, BATCH)[2][0],
@@ -1367,14 +1671,16 @@ def main():
         "name": "fused_denoiser", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
-        "launches": launches.get("fused_denoiser", 0), "max_abs_err": k1_err,
+        "launches": launches.get("fused_denoiser", 0),
+        "max_abs_err": max(k1_err, eval_k1_err),
         "ms": sum(r[0] for r in nets) / 2, "plain_ms": sum(r[1] for r in nets) / 2,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
         "module_ms": sum(r[2] for r in nets) / 2,
         "per_net": {name: {"ms": r[0], "plain_ms": r[1], "module_ms": r[2],
                            "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1]}
                     for name, r in zip(("kp", "lat"), nets)},
-        "launches_train": per_task("fused_denoiser")}, {
+        "launches_train": per_task("fused_denoiser"),
+        "launches_eval": per_eval("fused_denoiser")}, {
         "name": "fused_denoiser_bwd", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser_bwd.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:621",

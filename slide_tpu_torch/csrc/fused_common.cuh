@@ -290,10 +290,17 @@ struct Out {
 // C = cout wide: passes of 16 MT rows, each warp holding MT x NTW tiles of
 // 16 x 8.  Depth slices come from the ring; every compute warp takes every
 // stage (and gives it back) even when it has no tile.  A lies in shared
-// memory at float offset aoff (kSharedA) or in device memory at A.  Rows
-// past R are read clamped to row R - 1 and never written; depth past K is
-// read as 0 from A (the ring is zeroed at the start, then holds only
-// weights, so its stale rows are finite).
+// memory at float offset aoff (kSharedA; K1's activations) or in device
+// memory at A (K1's rows in device scratch, K2's tape).  Rows past R are
+// read clamped to row R - 1 and never written; depth past K is read as 0
+// from A (the ring is zeroed at the start, then holds only weights, so its
+// stale rows are finite).  Each 8-deep step's three products go into fresh
+// accumulators, which are then added to the running sums in fp32: the
+// tensor cores add into an accumulator truncating to its exponent, so over
+// a long depth a sum that cancels loses more than an fp32 sum would (on an
+// H100 an output of the latent net's score layer in K2 came out 15x further
+// from float64 than with fp32 sums; tests/test_torch_cuda.py builds such a
+// sum for K1).
 template <int MT, int NTW, bool kSharedA, int CL>
 __device__ __noinline__ void gemm_t(Ctx& cx, const Stream st, const float* bias,
                                     const float* A, int aoff, int lda, int R, const Out o) {
@@ -360,21 +367,36 @@ __device__ __noinline__ void gemm_t(Ctx& cx, const Stream st, const float* bias,
                             split(tile < nt ? w0[col] : 0.0f, bh[u][0], bl[u][0]);
                             split(tile < nt ? w1[col] : 0.0f, bh[u][1], bl[u][1]);
                         }
+                        // the step's three products into fresh accumulators,
+                        // then added to the sums
+                        float c[U][MT][4];
 #pragma unroll
                         for (int u = 0; u < U; ++u)
 #pragma unroll
                             for (int m = 0; m < MT; ++m)
-                                mma_tf32(acc[m][jn + u], al[m], bh[u][0], bh[u][1]);
+#pragma unroll
+                                for (int q = 0; q < 4; ++q) c[u][m][q] = 0.0f;
 #pragma unroll
                         for (int u = 0; u < U; ++u)
 #pragma unroll
                             for (int m = 0; m < MT; ++m)
-                                mma_tf32(acc[m][jn + u], ah[m], bl[u][0], bl[u][1]);
+                                mma_tf32(c[u][m], al[m], bh[u][0], bh[u][1]);
 #pragma unroll
                         for (int u = 0; u < U; ++u)
 #pragma unroll
                             for (int m = 0; m < MT; ++m)
-                                mma_tf32(acc[m][jn + u], ah[m], bh[u][0], bh[u][1]);
+                                mma_tf32(c[u][m], ah[m], bl[u][0], bl[u][1]);
+#pragma unroll
+                        for (int u = 0; u < U; ++u)
+#pragma unroll
+                            for (int m = 0; m < MT; ++m)
+                                mma_tf32(c[u][m], ah[m], bh[u][0], bh[u][1]);
+#pragma unroll
+                        for (int u = 0; u < U; ++u)
+#pragma unroll
+                            for (int m = 0; m < MT; ++m)
+#pragma unroll
+                                for (int q = 0; q < 4; ++q) acc[m][jn + u][q] += c[u][m][q];
                     }
                 }
             }

@@ -38,8 +38,9 @@
 //     the row buffers);
 //   - products on the tensor cores at fp32 accuracy (3xTF32): each operand is
 //     split into a TF32 high part and the TF32 rounding of the rest, and
-//     a_lo b_hi + a_hi b_lo + a_hi b_hi accumulate in fp32
-//     (mma.sync.m16n8k8.tf32).  Rows are the M side (16 or 32 per pass),
+//     a_lo b_hi + a_hi b_lo + a_hi b_hi of each 8-deep step accumulate in
+//     fresh fp32 accumulators, then in fp32 into the running sums
+//     (mma.sync.m16n8k8.tf32; fused_common.cuh::gemm_t, K2's loop too).  Rows are the M side (16 or 32 per pass),
 //     output channels the N side spread over the 8 compute warps; the inner
 //     loop is branch-free (one instantiation per tiles-per-warp count);
 //   - weights multicast to the cluster: each depth slice W[k0:k0+bk, :] of a

@@ -32,8 +32,9 @@
 //     order, the rows that picked it); the distance gradient; the injection
 //     vectors' gradients (each block's column sums, then d t4 / d cls, each
 //     block over its share of the embedding);
-//   - products on the tensor cores at fp32 accuracy (3xTF32: K1's loop, each
-//     8-deep step summed in fresh accumulators, gemm_k2 below): the
+//   - products on the tensor cores at fp32 accuracy (3xTF32: K1's loop,
+//     fused_common.cuh::gemm_t, each 8-deep step summed in fresh
+//     accumulators): the
 //     recompute's X W and the backward's d input = dY W^T, the latter over
 //     a transposed copy of the weights that the wrapper gathers each call
 //     (read through the same ring of multicast bulk copies as a forward
@@ -98,171 +99,6 @@ __device__ __forceinline__ float sqdist_raw(const float* a, const float* c) {
     return __fsub_rn(__fadd_rn(si, sj), __fmul_rn(2.0f, xy));
 }
 
-// K2's product: gemm_t's loop (fused_common.cuh) with A in device memory,
-// each 8-deep step's three products summed into fresh accumulators that are
-// then added to the running sums in fp32: the tensor cores add into an
-// accumulator truncating to its exponent, so over a long depth a sum that
-// cancels loses more than an fp32 sum would (on an H100 an output of the
-// latent net's score layer came out 15x further from float64 than 3xTF32
-// with fp32 sums; its GroupNorm, over a group of tiny variance, carried
-// that into the gradients).  Outputs go to device memory.
-template <int MT, int NTW, int CL>
-__device__ __noinline__ void gemm_k2(Ctx& cx, const Stream st, const float* bias, const float* A,
-                                     int lda, int R, const Out o) {
-    const int K = st.cin, C = st.cout, nt = (C + 7) >> 3;
-    const int warp = WARP, lane = LANE, g = lane >> 2, t = lane & 3;
-    const int stage = cx.pl->stage, ring = cx.pl->ring_off;
-    uint64_t* full = cx.pl->full;
-    uint64_t* empty = cx.pl->empty;
-    uint32_t j = cx.j;
-    constexpr int RP = 16 * MT;
-    for (int p = 0; p < st.passes; ++p) {
-        const int r0 = p * RP;
-        const bool live = r0 < R && warp < nt;
-        const bool m1 = MT > 1 && r0 + 16 < R;
-        int roff[MT][2];
-#pragma unroll
-        for (int m = 0; m < MT; ++m) {
-            roff[m][0] = min(r0 + m * 16 + g, R - 1) * lda;
-            roff[m][1] = min(r0 + m * 16 + g + 8, R - 1) * lda;
-        }
-        float acc[MT][NTW][4];
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-            for (int jn = 0; jn < NTW; ++jn)
-#pragma unroll
-                for (int q = 0; q < 4; ++q) acc[m][jn][q] = 0.0f;
-        for (int k0 = 0; k0 < K; k0 += st.bk) {
-            const uint32_t sg = j % kStages;
-            mbar_wait(full + sg, (j / kStages) & 1u);
-            const float* Ws = fused_smem + ring + sg * stage;
-            const int kn = min(st.bk, K - k0);
-            if (live) {
-                for (int kk = 0; kk < kn; kk += 8) {
-                    uint32_t ah[MT][4], al[MT][4];
-                    const int ka = k0 + kk + t, kb = ka + 4;
-                    const bool va = ka < K, vb = kb < K;
-                    const int ca = va ? ka : 0, cb = vb ? kb : 0;
-#pragma unroll
-                    for (int m = 0; m < MT; ++m) {
-                        const float v0 = A[roff[m][0] + ca], v1 = A[roff[m][1] + ca];
-                        const float v2 = A[roff[m][0] + cb], v3 = A[roff[m][1] + cb];
-                        split(va ? v0 : 0.0f, ah[m][0], al[m][0]);
-                        split(va ? v1 : 0.0f, ah[m][1], al[m][1]);
-                        split(vb ? v2 : 0.0f, ah[m][2], al[m][2]);
-                        split(vb ? v3 : 0.0f, ah[m][3], al[m][3]);
-                    }
-                    const float* w0 = Ws + (kk + t) * C + g;
-                    const float* w1 = w0 + 4 * C;
-                    constexpr int U = NTW < 2 ? 1 : 2;
-#pragma unroll
-                    for (int jn = 0; jn < NTW; jn += U) {
-                        uint32_t bh[U][2], bl[U][2];
-#pragma unroll
-                        for (int u = 0; u < U; ++u) {
-                            const int tile = warp + 8 * (jn + u);
-                            const int col = min(tile, nt - 1) * 8;
-                            split(tile < nt ? w0[col] : 0.0f, bh[u][0], bl[u][0]);
-                            split(tile < nt ? w1[col] : 0.0f, bh[u][1], bl[u][1]);
-                        }
-                        // the step's three products into fresh accumulators,
-                        // then added to the sums
-                        float c[U][MT][4];
-#pragma unroll
-                        for (int u = 0; u < U; ++u)
-#pragma unroll
-                            for (int m = 0; m < MT; ++m)
-#pragma unroll
-                                for (int q = 0; q < 4; ++q) c[u][m][q] = 0.0f;
-#pragma unroll
-                        for (int u = 0; u < U; ++u)
-#pragma unroll
-                            for (int m = 0; m < MT; ++m)
-                                mma_tf32(c[u][m], al[m], bh[u][0], bh[u][1]);
-#pragma unroll
-                        for (int u = 0; u < U; ++u)
-#pragma unroll
-                            for (int m = 0; m < MT; ++m)
-                                mma_tf32(c[u][m], ah[m], bl[u][0], bl[u][1]);
-#pragma unroll
-                        for (int u = 0; u < U; ++u)
-#pragma unroll
-                            for (int m = 0; m < MT; ++m)
-                                mma_tf32(c[u][m], ah[m], bh[u][0], bh[u][1]);
-#pragma unroll
-                        for (int u = 0; u < U; ++u)
-#pragma unroll
-                            for (int m = 0; m < MT; ++m)
-#pragma unroll
-                                for (int q = 0; q < 4; ++q) acc[m][jn + u][q] += c[u][m][q];
-                    }
-                }
-            }
-            // this warp is done with the ring stage, in every block's count
-            __syncwarp();
-            if (lane < CL) mbar_arrive_at<false>(empty + sg, lane);
-            ++j;
-        }
-        if (live) {
-            float bv[NTW][2];
-#pragma unroll
-            for (int jn = 0; jn < NTW; ++jn) {
-                const int c = (warp + 8 * jn) * 8 + 2 * t;
-                bv[jn][0] = bias && c < C ? __ldg(bias + c) : 0.0f;
-                bv[jn][1] = bias && c + 1 < C ? __ldg(bias + c + 1) : 0.0f;
-            }
-            float* red = fused_smem + cx.pl->red_off + 2 * o.col;
-#pragma unroll
-            for (int jn = 0; jn < NTW; ++jn) {
-                const int tile = warp + 8 * jn;
-                if (tile >= nt) continue;
-                // this thread's two columns: sums of v and v^2 over its rows
-                float sm[2] = {0.0f, 0.0f}, sq[2] = {0.0f, 0.0f};
-#pragma unroll
-                for (int m = 0; m < MT; ++m) {
-                    if (m == 1 && !m1) continue;
-#pragma unroll
-                    for (int q = 0; q < 4; ++q) {
-                        const int r = r0 + m * 16 + g + (q >> 1) * 8;
-                        const int c = tile * 8 + 2 * t + (q & 1);
-                        if (r >= R || c >= C) continue;
-                        float v = acc[m][jn][q] + bv[jn][q & 1];
-                        if (o.relu) v = fmaxf(v, 0.0f);
-                        sm[q & 1] += v;
-                        sq[q & 1] = fmaf(v, v, sq[q & 1]);
-                        for (int s = 0; s < o.rep; ++s) {
-                            float* dst = o.p + ((size_t)r * o.rep + s) * o.ld + o.col + c;
-                            *dst = o.acc ? *dst + v : v;
-                        }
-                    }
-                }
-                if (o.stats) {
-                    // over the 8 row groups g, then the column's owner adds
-                    // them to the table: the sum runs in a fixed order
-#pragma unroll
-                    for (int off = 4; off < 32; off <<= 1)
-#pragma unroll
-                        for (int u = 0; u < 2; ++u) {
-                            sm[u] += __shfl_xor_sync(0xffffffffu, sm[u], off);
-                            sq[u] += __shfl_xor_sync(0xffffffffu, sq[u], off);
-                        }
-                    const int c = tile * 8 + 2 * t;
-                    if (g == 0)
-#pragma unroll
-                        for (int u = 0; u < 2; ++u)
-                            if (c + u < C) {
-                                red[2 * (c + u)] += sm[u] * o.rep;
-                                red[2 * (c + u) + 1] += sq[u] * o.rep;
-                            }
-                }
-            }
-        }
-    }
-    compute_sync();
-    cx.j = j;
-}
-
 // The product with dense d on the block's R rows of A (device memory, stride
 // lda), or with its transpose (kT: d input = dY W^T, over the transposed
 // copy): the stream's next entry, else the kernel traps.
@@ -275,16 +111,16 @@ __device__ void dense(Ctx& cx, const Bwd& bw, const Dense& d, bool kT, const flo
     // the fewest tiles per warp that cover the width (8 warps x 8 columns)
     const int ntw = (cout + 63) / 64;
     if (st.mt == 2) {
-        if (ntw <= 1) gemm_k2<2, 1, CL>(cx, st, bias, A, lda, R, o);
-        else if (ntw <= 2) gemm_k2<2, 2, CL>(cx, st, bias, A, lda, R, o);
-        else if (ntw <= 4) gemm_k2<2, 4, CL>(cx, st, bias, A, lda, R, o);
-        else gemm_k2<2, 8, CL>(cx, st, bias, A, lda, R, o);
+        if (ntw <= 1) gemm_t<2, 1, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else if (ntw <= 2) gemm_t<2, 2, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else if (ntw <= 4) gemm_t<2, 4, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else gemm_t<2, 8, false, CL>(cx, st, bias, A, 0, lda, R, o);
     } else {
-        if (ntw <= 1) gemm_k2<1, 1, CL>(cx, st, bias, A, lda, R, o);
-        else if (ntw <= 2) gemm_k2<1, 2, CL>(cx, st, bias, A, lda, R, o);
-        else if (ntw <= 4) gemm_k2<1, 4, CL>(cx, st, bias, A, lda, R, o);
-        else if (ntw <= 8) gemm_k2<1, 8, CL>(cx, st, bias, A, lda, R, o);
-        else gemm_k2<1, 16, CL>(cx, st, bias, A, lda, R, o);
+        if (ntw <= 1) gemm_t<1, 1, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else if (ntw <= 2) gemm_t<1, 2, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else if (ntw <= 4) gemm_t<1, 4, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else if (ntw <= 8) gemm_t<1, 8, false, CL>(cx, st, bias, A, 0, lda, R, o);
+        else gemm_t<1, 16, false, CL>(cx, st, bias, A, 0, lda, R, o);
     }
 }
 
@@ -1317,7 +1153,7 @@ weight_grad_kernel(const int* __restrict__ jobs, const int* __restrict__ blocks,
                     split(Xs[cur][kk + t][m + 8], ah[1], al[1]);
                     split(Xs[cur][kk + t + 4][m], ah[2], al[2]);
                     split(Xs[cur][kk + t + 4][m + 8], ah[3], al[3]);
-                    // fresh accumulators per step, added in fp32 (as gemm_k2)
+                    // fresh accumulators per step, added in fp32 (as gemm_t)
                     float c[4][4];
 #pragma unroll
                     for (int jn = 0; jn < 4; ++jn)

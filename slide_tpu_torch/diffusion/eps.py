@@ -66,20 +66,40 @@ def diffusion_training_loss(net_fn: Callable, x0: torch.Tensor, sched: Diffusion
 
 
 @torch.no_grad()
-def diffusion_sampling(net_fn: Callable, shape: Sequence[int],
-                       sched: DiffusionSchedule, noise_fn: NoiseFn) -> torch.Tensor:
-    """Ancestral sampling x_T -> x_0 over `shape` (B, N, D)."""
+def diffusion_sampling(net_fn: Callable, shape: Sequence[int], sched: DiffusionSchedule,
+                       noise_fn: NoiseFn, *, t_slices: Optional[Sequence[int]] = None,
+                       xT: Optional[torch.Tensor] = None,
+                       start_step: Optional[int] = None):
+    """Ancestral sampling x_T -> x_0 over `shape` (B, N, D).
+
+    t_slices: timesteps at which to record the state before that step's
+    noise (zeros for a timestep the chain does not visit).  xT / start_step:
+    a warm start from a precomputed x at `start_step`: x = xT +
+    sigma[start_step] z, then the steps start_step - 1 down to 0.  Returns
+    x_0, or (x_0, {t: state}) with t_slices."""
     shape = tuple(shape)
     b = shape[0]
     # the per-step scalars in fp32, each with the JAX chain's own operations
     eps_coef = (1.0 - sched.alpha) / torch.sqrt(1.0 - sched.alpha_bar)
     sqrt_alpha = torch.sqrt(sched.alpha)
-    x = noise_fn(shape)
-    for t in range(sched.T - 1, -1, -1):
+    if xT is not None:
+        if start_step is None:
+            raise ValueError("start_step required with a precomputed xT")
+        x = xT + sched.sigma[start_step] * noise_fn(shape)
+        start = start_step - 1
+    else:
+        x = noise_fn(shape)
+        start = sched.T - 1
+    slices = {t: torch.zeros_like(x) for t in (t_slices or ())}
+    for t in range(start, -1, -1):
         ts = torch.full((b,), t, dtype=torch.int32, device=x.device)
         eps = net_fn(x, ts)
         x = (x - eps_coef[t] * eps) / sqrt_alpha[t]
+        if t in slices:
+            slices[t] = x
         noise = noise_fn(shape)
         if t > 0:
             x = x + sched.sigma[t] * noise
+    if t_slices:
+        return x, slices
     return x

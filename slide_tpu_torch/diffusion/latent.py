@@ -3,7 +3,7 @@
 half.  The latent is [keypoint positions | keypoint features]; with
 keypoints given (keypoint-conditional, every preset) they are pinned at
 every step and only features are denoised.  The FastDPM samplers are
-`fastdpm.py`.
+`fastdpm.py`; `latent_denoise_and_reconstruct` runs either chain.
 """
 
 from __future__ import annotations
@@ -73,19 +73,32 @@ def latent_denoise_and_reconstruct(net_fn: Callable, decode_fn: Callable, n: int
                                    n_steps: Optional[int] = None,
                                    local_resampling: bool = False,
                                    complete_x0=None, keypoint_mask=None,
-                                   sampler: str = "ddpm"):
+                                   sampler: str = "ddpm",
+                                   fastdpm_kw: Optional[dict] = None):
     """Reverse-diffuse the (n, *shape) latent, then decode it.
     decode_fn(keypoint, feature, label) -> (B, N, out) cloud.
-    Returns (cloud, keypoint, keypoint_feature)."""
-    if sampler != "ddpm":
-        raise NotImplementedError(f"sampler {sampler!r} is not ported")
+    sampler="fastdpm" runs the S-step chain (`fastdpm.fast_x0_denoise`;
+    fastdpm_kw: length / schedule / kappa) from noise: it takes no warm
+    start and no local resampling, which are tied to the full chain's
+    timesteps.  Returns (cloud, keypoint, keypoint_feature)."""
     if local_resampling and keypoint is None:
         raise ValueError("local resampling is keypoint-conditional")
-    latent = x0_denoise(
-        net_fn, (n,) + tuple(shape), sched, noise_fn, x=x, curr_step=curr_step,
-        n_steps=n_steps, keypoint=keypoint, keypoint_dim=keypoint_dim,
-        complete_x0=complete_x0 if local_resampling else None,
-        keypoint_mask=keypoint_mask if local_resampling else None)
+    if sampler == "fastdpm":
+        if (local_resampling or x is not None or curr_step is not None
+                or n_steps is not None):
+            raise ValueError("fastdpm sampling is full-chain-from-noise only")
+        from slide_tpu_torch.diffusion.fastdpm import fast_x0_denoise
+        latent = fast_x0_denoise(net_fn, (n,) + tuple(shape), sched, noise_fn,
+                                 keypoint=keypoint, keypoint_dim=keypoint_dim,
+                                 **(fastdpm_kw or {}))
+    elif sampler != "ddpm":
+        raise ValueError(f"unknown sampler {sampler}")
+    else:
+        latent = x0_denoise(
+            net_fn, (n,) + tuple(shape), sched, noise_fn, x=x, curr_step=curr_step,
+            n_steps=n_steps, keypoint=keypoint, keypoint_dim=keypoint_dim,
+            complete_x0=complete_x0 if local_resampling else None,
+            keypoint_mask=keypoint_mask if local_resampling else None)
     kp = latent[..., :keypoint_dim]
     feat = latent[..., keypoint_dim:]
     return decode_fn(kp, feat, label), kp, feat

@@ -73,11 +73,12 @@ class PointAutoencoder(nn.Module):
     def forward(self, pointcloud: torch.Tensor, keypoint: torch.Tensor,
                 label: Optional[torch.Tensor] = None, loss_type: str = "cd_p",
                 sample_posterior: bool = True, noise_fn: Optional[NoiseFn] = None,
-                start_fn: Optional[StartFn] = None):
+                start_fn: Optional[StartFn] = None, return_keypoint_feature: bool = False):
         """The round trip and its losses: (clouds per level, [per level: dict
-        of (B,) values with "training_loss" and `calc_cd`'s metrics]).
-        The FPS starts are drawn in the JAX package's order: the three trims,
-        then the targets'."""
+        of (B,) values with "training_loss" and `calc_cd`'s metrics]), and
+        with `return_keypoint_feature` the (sampled) features at the
+        keypoints third.  The FPS starts are drawn in the JAX package's
+        order: the three trims, then the targets'."""
         if pointcloud.shape[-1] not in (3, 6):
             raise ValueError("pointcloud must be xyz or xyz+normals")
         if loss_type not in ("cd_p", "cd_t"):
@@ -119,6 +120,8 @@ class PointAutoencoder(nn.Module):
                     loss_dict["kl_loss"] = torch.zeros_like(loss)
             loss_dict["training_loss"] = loss
             loss_list.append(loss_dict)
+        if return_keypoint_feature:
+            return l_xyz, loss_list, feature
         return l_xyz, loss_list
 
 

@@ -106,6 +106,7 @@ class ConditionalPointNet2(nn.Module):
         super().__init__()
         hp = config
         _check_supported(hp)
+        self.config = config
         self.include_t = hp["include_t"]
         self.include_class_condition = hp.get("include_class_condition", False)
         self.transform_output = hp.get("transform_output", True)

@@ -65,6 +65,22 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def seeded_draws(dev: torch.device, seed: int, noise_fn: Optional[Callable] = None,
+                 start_fn: Optional[Callable] = None):
+    """(generator, noise_fn, start_fn): a generator on `dev` seeded with
+    `seed`; `noise_fn(shape)` standard normals and `start_fn(b, n)` FPS
+    starts (b,) in [0, n) drawn from it, where the caller gives none (a
+    test replays another implementation's draws through them)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if noise_fn is None:
+        def noise_fn(shape):
+            return torch.randn(tuple(shape), generator=gen, device=dev)
+    if start_fn is None:
+        def start_fn(b, n):
+            return torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+    return gen, noise_fn, start_fn
+
+
 def default_configs() -> dict:
     """The shipped airplane presets of the first three stages and the SAP
     refine+upsample preset (all 13 classes; its `dpsr_config` sets DPSR's
@@ -243,15 +259,7 @@ def generate(stages: Stages, seed: int = 0, *, noise_fn: Optional[Callable] = No
     mesh (`sap.mesh_to_host(out["mesh"], i)` gives sample i's verts, faces
     and normals) and the seconds of each stage."""
     dev = stages.device
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    if noise_fn is None:
-        def noise_fn(shape):
-            return torch.randn(tuple(shape), generator=gen, device=dev)
-
-    if start_fn is None:
-        def start_fn(b, n):
-            return torch.randint(0, n, (b,), generator=gen, device=dev, dtype=torch.int32)
+    gen, noise_fn, start_fn = seeded_draws(dev, seed, noise_fn, start_fn)
 
     def sync():
         if dev.type == "cuda":

@@ -19,6 +19,8 @@ import pickle
 import shutil
 from typing import Optional
 
+import numpy as np
+
 from slide_tpu_torch.weights import read_checkpoint
 
 
@@ -37,13 +39,18 @@ def _list_iters(path: str, ckpt_name: str) -> list:
 
 def find_max_iter(path: str, ckpt_name: str = "pointnet_ckpt", mode: str = "max"):
     """'max': the newest iteration (-1 if none); 'all': every iteration,
-    newest first.  (The JAX package's 'best' reads eval results, which the
-    port does not write yet: ROADMAP item 17.)"""
+    newest first; 'best': the iteration with the lowest avg_cd in
+    ../../eval_result/gathered_eval_result.pkl."""
     iters = _list_iters(path, ckpt_name)
     if mode == "max":
         return max(iters) if iters else -1
     if mode == "all":
         return sorted(iters, reverse=True)
+    if mode == "best":
+        with open(os.path.join(path, "..", "..", "eval_result",
+                               "gathered_eval_result.pkl"), "rb") as f:
+            data = pickle.load(f)
+        return data["iter"][int(np.argmin(np.asarray(data["avg_cd"])))]
     raise ValueError(f"{mode} mode is not supported")
 
 

@@ -33,14 +33,20 @@ explicit generators: the network's init from `seed`, the per-step draws from
 `seed + 1`, the data from numpy with `seed`.  Each step also takes its draws
 as an argument (a test replays the JAX package's).
 
+Each entry point takes `eval_hook="auto"`: after every checkpoint of the
+cadence (every `eval_per_ckpt`-th) it evaluates the raw weights and every
+EMA shadow as the JAX package's hooks do (`make_generation_eval_hook`,
+`make_ae_eval_hook`, `make_latent_eval_hook`, `make_sap_eval_hook`), into
+<experiment root>/eval_result[/model_ema_<rate>] with `_iter_<n>` tags.
+
 Left out (ROADMAP): the other position tasks (16b), the x0-engine step
-(13b), the device-resident corpus (15a's `device_data`), `activation_dtype`
-(16b) and the checkpoint-time eval hooks (17); a config or an argument
-asking for one raises.
+(13b), the device-resident corpus (15a's `device_data`) and
+`activation_dtype` (16b); a config or an argument asking for one raises.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 import os
@@ -54,9 +60,11 @@ from torch import nn
 from slide_tpu_torch.data import get_dataloader
 from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
                                        diffusion_training_loss, latent_config_weights,
-                                       latent_train_loss)
-from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder
-from slide_tpu_torch.models.fused_denoiser import make_fused_train_fn
+                                       latent_denoise_and_reconstruct, latent_train_loss)
+from slide_tpu_torch.eval import (ae_quantitative_eval, ae_visual_eval, evaluate_per_rank,
+                                  sap_grid_eval)
+from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder, decode_params
+from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn, make_fused_train_fn
 from slide_tpu_torch.ops import sample_keypoints
 from slide_tpu_torch.pipeline import resolve_device
 from slide_tpu_torch.sap import DPSR, mirror_and_concat, network_output_to_dpsr_grid
@@ -121,6 +129,14 @@ def _step_update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
     ema_update(state.ema, list(state.net.parameters()), state.ema_rates)
     state.step += 1
     return loss.detach()
+
+
+def _trainset_config(config: dict, data_dir: Optional[str]) -> dict:
+    """The config's dataset settings, reading from `data_dir` when given."""
+    trainset_config = dict(config["shapenet_psr_dataset_config"])
+    if data_dir is not None:
+        trainset_config["data_dir"] = data_dir
+    return trainset_config
 
 
 def experiment_dirs(config: dict) -> tuple[str, str]:
@@ -287,21 +303,17 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
                  verbose: bool = True):
     """The training loop: resume, one step per batch (`points`, `normals`,
     `label` and, where the dataset loads it, `psr` on the device), logging,
-    checkpoints.  Returns (state,
+    checkpoints, and `eval_hook(net, ema shadows, iteration)` after each
+    checkpoint of the cadence.  Returns (state,
     [(iter, loss), ...]) with a loss every `iters_per_logging` iterations;
     a non-finite logged loss raises FloatingPointError."""
     train_config = config["train_config"]
-    trainset_config = dict(config["shapenet_psr_dataset_config"])
-    if data_dir is not None:
-        trainset_config["data_dir"] = data_dir
+    trainset_config = _trainset_config(config, data_dir)
     if train_config.get("device_data", False):
         raise NotImplementedError("device_data: not ported yet (ROADMAP Queue A, item 15a)")
     if "activation_dtype" in train_config:
         raise NotImplementedError("activation_dtype: not ported yet (ROADMAP Queue A, "
                                   "item 16b)")
-    if eval_hook is not None:
-        raise NotImplementedError("checkpoint-time eval hooks: not ported yet (ROADMAP "
-                                  "Queue A, item 17)")
     dev = next(state.net.parameters()).device
     _, output_directory = experiment_dirs(config)
 
@@ -369,6 +381,8 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
             if n_iter % iters_per_ckpt == 0:
                 _save(state, output_directory, n_iter - 1,
                       int(time.time() - t0) + time_offset, durable_dir)
+                if eval_hook is not None:
+                    eval_hook(state.net, state.ema, n_iter - 1)
         if n_iter == start_iter:
             raise ValueError(f"no full batches of {batch_size} in the dataset: "
                              f"batch_size exceeds the usable dataset size")
@@ -377,6 +391,166 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
         _save(state, output_directory, n_iter - 1, int(time.time() - t0) + time_offset,
               durable_dir)
     return state, losses
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint-time evaluation hooks (counterpart: the JAX package's
+# `make_*_eval_hook`): `hook(net, ema shadows, iteration)`, called by
+# `run_training` after each checkpoint of the cadence.  The DDPM hooks
+# evaluate the raw weights and every EMA shadow, the latter under
+# eval_result/model_ema_<rate>/.
+
+
+def _eval_copy(net: nn.Module, shadow=None) -> nn.Module:
+    """A copy of `net` in eval mode, with an EMA shadow's values if given."""
+    out = copy.deepcopy(net).eval()
+    if shadow is not None:
+        with torch.no_grad():
+            for p, s in zip(out.parameters(), shadow):
+                p.copy_(s)
+    return out
+
+
+def _cadence(train_config: dict, run: Callable) -> Callable:
+    """`run(net, ema shadows, iteration)` at every `eval_per_ckpt`-th
+    checkpoint."""
+    num_ckpts = [0]
+
+    def hook(net, ema, n_iter):
+        num_ckpts[0] += 1
+        if num_ckpts[0] % train_config.get("eval_per_ckpt", 1) == 0:
+            run(net, ema, n_iter)
+
+    return hook
+
+
+def _every_weight_set(config: dict, run_eval: Callable) -> Callable:
+    """The DDPM hooks' cadence over the raw weights and each EMA shadow:
+    run_eval(net, save_dir, ckpt_info)."""
+    train_config = config["train_config"]
+    ema_rates = tuple(train_config.get("ema_rate") or ())
+    save_dir = os.path.join(experiment_dirs(config)[0], "eval_result")
+
+    def run(net, ema, n_iter):
+        ckpt_info = f"_iter_{n_iter}"
+        run_eval(_eval_copy(net), save_dir, ckpt_info)
+        for rate, shadow in zip(ema_rates, ema):
+            run_eval(_eval_copy(net, shadow), os.path.join(save_dir, f"model_ema_{rate:.5f}"),
+                     ckpt_info)
+
+    return _cadence(train_config, run)
+
+
+def make_generation_eval_hook(config: dict, *, data_dir: Optional[str] = None,
+                              seed: int = 0, fused: bool = True) -> Callable:
+    """The position DDPM's hook: a test set sampled per checkpoint
+    (`evaluate_per_rank`; the fused denoiser where the config is in its
+    scope, K1 on the card) by the raw weights and by each EMA shadow."""
+    trainset_config = _trainset_config(config, data_dir)
+    task = config["train_config"]["task"]
+    pfd = 3 + config["pointnet_config"]["in_fea_dim"]
+    dc = config["diffusion_config"]
+
+    def run_eval(net, save_dir, ckpt_info):
+        dev = next(net.parameters()).device
+        sched = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"], dev)
+        evaluate_per_rank(net, trainset_config, sched, save_dir, task, point_feature_dim=pfd,
+                          ckpt_info=ckpt_info, seed=seed, fused=fused, device=dev)
+
+    return _every_weight_set(config, run_eval)
+
+
+def make_ae_eval_hook(config: dict, *, data_dir: Optional[str] = None,
+                      seed: int = 0) -> Callable:
+    """The autoencoder's hook: the visual evaluation on the val split and
+    the quantitative history on the train and val splits (and, where the
+    dataset config adds keypoint noise, on val without it)."""
+    trainset_config = _trainset_config(config, data_dir)
+    save_dir = os.path.join(experiment_dirs(config)[0], "eval_result")
+    # the val split does not repeat (the dataset raises for it; the JAX
+    # package's hook passes the training config's repeat_dataset and does)
+    loaders = {"train": trainset_config, "val": dict(trainset_config, repeat_dataset=1)}
+
+    def run(net, ema, n_iter):
+        ae = _eval_copy(net)
+        dev = next(ae.parameters()).device
+        ae_visual_eval(ae, get_dataloader(loaders["val"], phase="val", seed=seed), save_dir,
+                       n_iter, 0, trainset_config, seed=seed, device=dev)
+        for phase, sub in (("train", "trainset_eval"), ("val", "valset_eval")):
+            ae_quantitative_eval(ae, get_dataloader(loaders[phase], phase=phase, seed=seed),
+                                 os.path.join(save_dir, sub), n_iter, 0, trainset_config,
+                                 seed=seed, device=dev)
+        if trainset_config.get("keypoint_noise_magnitude", 0) > 0:
+            ae_quantitative_eval(ae, get_dataloader(loaders["val"], phase="val", seed=seed),
+                                 os.path.join(save_dir, "valset_eval_keypoint_noise_0"),
+                                 n_iter, 0, dict(trainset_config, keypoint_noise_magnitude=0),
+                                 seed=seed, device=dev)
+
+    return _cadence(config["train_config"], run)
+
+
+def make_latent_eval_hook(config: dict, ae_params, *, data_dir: Optional[str] = None,
+                          seed: int = 0, fused: bool = True) -> Callable:
+    """The feature DDPM's hook: per checkpoint, latents sampled with the
+    keypoints of train-split shapes pinned (the fused denoiser where the
+    config is in its scope, K1 on the card), decoded by the frozen
+    autoencoder (`ae_params`, a flax tree; its decode runs K3 on the card),
+    by the raw weights and by each EMA shadow."""
+    trainset_config = _trainset_config(config, data_dir)
+    task = config["train_config"]["task"]
+    k = trainset_config["num_keypoints"]
+    pointnet_config = config["pointnet_config"]
+    feat_dim = pointnet_config["in_fea_dim"]
+    decoder = {}
+
+    def run_eval(net, save_dir, ckpt_info):
+        dev = next(net.parameters()).device
+        if dev not in decoder:
+            ae = build_autoencoder(config["autoencoder_config"]["pointnet_config"],
+                                   decode_only=True)
+            load_flax_params(ae, decode_params(ae_params))
+            decoder[dev] = ae.to(dev).eval()
+        ae = decoder[dev]
+        sched = X0Schedule.from_config(config["standard_diffusion_config"], dev)
+        fused_fn = make_fused_net_fn(pointnet_config, net, k) if fused else None
+
+        def latent_sampler(noise_fn, start_fn, label, keypoint, **kw):
+            def net_fn(x, ts):
+                if fused_fn is not None:
+                    return fused_fn(x, ts, label)
+                return net(x, ts=ts, label=label)
+
+            def decode_fn(kp, feat, lbl):
+                return ae.decode(kp, feat, label=lbl, start_fn=start_fn)
+
+            return latent_denoise_and_reconstruct(
+                net_fn, decode_fn, label.shape[0], 3, (k, 3 + feat_dim), sched, noise_fn,
+                label=label, keypoint=keypoint, **kw)
+
+        evaluate_per_rank(net, trainset_config, None, save_dir, task,
+                          point_feature_dim=feat_dim, ckpt_info=ckpt_info,
+                          latent_sampler=latent_sampler, seed=seed, device=dev)
+
+    return _every_weight_set(config, run_eval)
+
+
+def make_sap_eval_hook(config: dict, *, data_dir: Optional[str] = None,
+                       seed: int = 0) -> Callable:
+    """The SAP net's hook: the DPSR-grid L2 on the val split (the metric
+    that picks a SAP checkpoint), raw weights."""
+    trainset_config = _trainset_config(config, data_dir)
+    dpsr_config = config["dpsr_config"]
+    save_dir = os.path.join(experiment_dirs(config)[0], "eval_result")
+
+    def run(net, ema, n_iter):
+        dev = next(net.parameters()).device
+        dpsr = DPSR((dpsr_config["grid_res"],) * 3, sig=dpsr_config["psr_sigma"]).to(dev)
+        sap_grid_eval(_eval_copy(net), dpsr,
+                      get_dataloader(trainset_config, phase="val", seed=seed),
+                      config["pointnet_config"], dpsr_config, trainset_config, save_dir,
+                      n_iter, 0, scale=trainset_config["scale"], seed=seed, device=dev)
+
+    return _cadence(config["train_config"], run)
 
 
 def build_position_ddpm(config: dict, *, seed: int = 0, device=None, fused: bool = True):
@@ -413,6 +587,9 @@ def train_position_ddpm(config: dict, *, data_dir: Optional[str] = None,
     (counterpart: the JAX package's `train_position_ddpm`).  Returns
     (TrainState, [(iter, loss), ...])."""
     state, step = build_position_ddpm(config, seed=seed, device=device, fused=fused)
+    if eval_hook == "auto":
+        eval_hook = make_generation_eval_hook(config, data_dir=data_dir, seed=seed,
+                                              fused=fused)
     return run_training(config, state, step, data_dir=data_dir, max_iters=max_iters,
                         seed=seed, eval_hook=eval_hook, verbose=verbose)
 
@@ -488,6 +665,8 @@ def train_autoencoder(config: dict, *, data_dir: Optional[str] = None,
     the JAX package's `train_autoencoder`).  Returns (TrainState,
     [(iter, loss), ...])."""
     state, step = build_ae_training(config, seed=seed, device=device)
+    if eval_hook == "auto":
+        eval_hook = make_ae_eval_hook(config, data_dir=data_dir, seed=seed)
     return run_training(config, state, step, data_dir=data_dir, max_iters=max_iters,
                         seed=seed, eval_hook=eval_hook, verbose=verbose)
 
@@ -568,6 +747,9 @@ def train_latent_ddpm(config: dict, ae_params, *, data_dir: Optional[str] = None
     Returns (TrainState, [(iter, loss), ...])."""
     state, step = build_latent_training(config, ae_params, seed=seed, device=device,
                                         fused=fused)
+    if eval_hook == "auto":
+        eval_hook = make_latent_eval_hook(config, ae_params, data_dir=data_dir, seed=seed,
+                                          fused=fused)
     return run_training(config, state, step, data_dir=data_dir, max_iters=max_iters,
                         seed=seed, eval_hook=eval_hook, verbose=verbose)
 
@@ -678,5 +860,7 @@ def train_upsampler(config: dict, *, ae_params=None, data_dir: Optional[str] = N
     config's `autoencoder_config`).  Returns (TrainState, [(iter, loss), ...])."""
     state, step = build_upsampler_training(config, ae_params=ae_params, seed=seed,
                                            device=device)
+    if eval_hook == "auto":
+        eval_hook = make_sap_eval_hook(config, data_dir=data_dir, seed=seed)
     return run_training(config, state, step, data_dir=data_dir, max_iters=max_iters,
                         seed=seed, eval_hook=eval_hook, verbose=verbose)

@@ -50,3 +50,11 @@ def select_eval_params(params, ema_list, rates, n_updates, min_maturity: float =
     if best is None:
         return params, "raw"
     return ema_list[best], f"ema_{rates[best]}"
+
+
+def select_eval_params_from_ckpt(ckpt: dict, rates=EMA_DEFAULT_RATES,
+                                 min_maturity: float = 0.95):
+    """`select_eval_params` over a loaded checkpoint (`train/checkpoint.py`'s
+    dict: iter, model_state_dict and, where written, ema_state_list)."""
+    return select_eval_params(ckpt["model_state_dict"], ckpt.get("ema_state_list"), rates,
+                              int(ckpt.get("iter", -1)) + 1, min_maturity=min_maturity)

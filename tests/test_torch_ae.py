@@ -21,6 +21,7 @@ their measured gaps (FULL_ENCODE_F64_ATOL, FULL_ENCODE_ATOL)."""
 
 import copy
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -506,9 +507,19 @@ def test_train_autoencoder_checkpoints_and_resumes(tmp_path):
     assert state.step == 3 and state.ema_rates == ()
     ckpt_dir = str(tmp_path / "exp" / "ae_airplane_kl_1e-5_latent_16_32" / "checkpoint")
     assert sorted(os.listdir(ckpt_dir)) == ["pointnet_ckpt_1.pkl", "pointnet_ckpt_2.pkl"]
+    # resumed, with the checkpoint-time evaluation: the step to 4 ends an
+    # epoch, a checkpoint of the cadence, and the hook writes the JAX
+    # package's files
     state2, losses2 = tdriver.train_autoencoder(cfg, data_dir=root, max_iters=4,
-                                                device="cpu", verbose=False)
+                                                device="cpu", eval_hook="auto", verbose=False)
     assert losses2[0][0] == 3 and state2.step == 4 and find_max_iter(ckpt_dir) == 3
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdriver.train_autoencoder(cfg, data_dir=root, max_iters=4, device="cpu",
-                                  eval_hook="auto")
+    out = str(tmp_path / "exp" / "ae_airplane_kl_1e-5_latent_16_32" / "eval_result")
+    quantitative = "shapenet_psr_autoencoder_quantitative_eval_result.pkl"
+    assert sorted(os.listdir(out)) == [
+        "shapenet_psr_autoencoder_visualization_result_iteration_00000003_epoch_0000.pkl",
+        "trainset_eval", "valset_eval", "valset_eval_keypoint_noise_0"]
+    for sub in ("trainset_eval", "valset_eval", "valset_eval_keypoint_noise_0"):
+        assert os.listdir(os.path.join(out, sub)) == [quantitative]
+        with open(os.path.join(out, sub, quantitative), "rb") as f:
+            history = pickle.load(f)
+        assert history["iter"] == [3] and np.isfinite(history["cd_p"]).all()

@@ -179,6 +179,90 @@ def test_k1_matches_plain_scope(cuda, case, n, b):
     torch.testing.assert_close(got, want, atol=K1_ATOL, rtol=0)
 
 
+# K1's products on a deep sum that cancels: two input channels of the
+# latent net carry CANCEL_BIG at every point, alone in their 8-deep steps
+# (the channels beside them are 0), and every product that reads them has
+# the second one's weights the negation of the first one's, so that each
+# such output is a sum of O(1) terms taken between two terms of ~CANCEL_BIG
+# / 10 that cancel.  A tensor-core accumulator held over the whole depth
+# truncates the O(1) terms to the big ones' exponent; fp32 running sums of
+# fresh per-step accumulators round them.  K1 against the plain version run
+# in float64 must lie no further from it than the plain fp32 version does
+# (each as max |got - float64| / max(1, max |float64|)).  Measured on an
+# H100 (random latent-net weights, batch 16, 8 products cancelling): the
+# plain fp32 version 1.29e-4; K1 summing the whole depth in one accumulator
+# 3.57e-4 (2.8x; 1.38e-3 from the plain version, beyond K1's 1e-4 gate),
+# K1 with fresh accumulators per 8-deep step 5.4e-5 (0.42x).
+CANCEL_BIG = 1e4
+CANCEL_RATIO = 1.0
+
+
+def _cancelling_flat(fd, spec, packed, pc, t4, cls):
+    """packed.flat with, in every product whose input carries the two big
+    channels, the second channel's weight row set to minus the first's."""
+    flat = packed.flat.clone()
+    real = fd._dense
+    done = set()
+    for _ in range(8):
+        flagged = []
+
+        def probe(x, fl, d):
+            big = (x.abs() >= CANCEL_BIG / 2).reshape(-1, x.shape[-1]).all(dim=0)
+            cols = torch.nonzero(big).flatten().tolist()
+            if cols and d["w"] not in done:
+                flagged.append((d, cols))
+            return real(x, fl, d)
+
+        fd._dense = probe
+        try:
+            fd.fused_forward_plain(spec, packed, pc, t4, cls, flat=flat)
+        finally:
+            fd._dense = real
+        if not flagged:
+            return flat, len(done)
+        for d, cols in flagged:
+            assert len(cols) == 2, cols
+            w = flat[d["w"]:d["w"] + d["cin"] * d["cout"]].view(d["cin"], d["cout"])
+            w[cols[1]] = -w[cols[0]]
+            done.add(d["w"])
+    raise AssertionError("the big channels still reach a new product")
+
+
+@pytest.mark.cuda
+def test_k1_cancelling_deep_sum_against_float64(cuda):
+    from slide_tpu_torch.configs import latent_ddpm_config
+    from slide_tpu_torch.models import fused_denoiser as fd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = latent_ddpm_config("airplane")["pointnet_config"]
+    net, fn = _random_fused_net(cfg, 16, seed=5)
+    b, feat = 16, cfg["in_fea_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pc = torch.randn((b, 16, 3 + feat), generator=gen, device="cuda")
+    # feature 0 and the last feature big, each alone in its 8-deep step
+    pc[..., 3:3 + 8] = 0.0
+    pc[..., 3 + feat - 8:3 + feat] = 0.0
+    pc[..., 3] = CANCEL_BIG
+    pc[..., 3 + feat - 1] = CANCEL_BIG
+    ts = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    label = torch.randint(0, 13, (b,), generator=gen, device="cuda")
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts).contiguous(), net.class_emb(label).contiguous()
+        flat, n_products = _cancelling_flat(fd, fn.spec, fn.packed, pc, t4, cls)
+        got = fd.fused_forward_cuda(fn.packed, pc, t4, cls, flat=flat)
+        plain = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls, flat=flat)
+        want = fd.fused_forward_plain(fn.spec, fn.packed, pc.double(), t4.double(),
+                                      cls.double(), flat=flat.double())
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.abs().max()))
+    k1_err = float((got.double() - want).abs().max()) / scale
+    plain_err = float((plain.double() - want).abs().max()) / scale
+    k1_vs_plain = float((got - plain).abs().max())
+    print(f"k1 cancelling sum: K1 {k1_err:.3e}, plain fp32 {plain_err:.3e} of "
+          f"{scale:.3f} from float64; K1 vs plain {k1_vs_plain:.3e}; {n_products} products cancel")
+    assert torch.isfinite(got).all()
+    assert k1_err <= CANCEL_RATIO * plain_err, (k1_err, plain_err)
+
+
 @pytest.mark.cuda
 def test_k1_wrapper_counts_launches_and_checks_inputs(fused_nets):
     from slide_tpu_torch.models import fused_denoiser as fd
@@ -856,3 +940,89 @@ def test_latent_training_step_launches(cuda, tmp_path):
     assert state.step == 2 and all(torch.isfinite(torch.tensor([l for _, l in losses])))
     assert dict(_build.launch_counts) == {"fps": 10, "fused_denoiser": 2,
                                           "fused_denoiser_bwd": 2}
+
+
+# ---------------------------------------------------------------------------
+# Evaluation on the card: the EMD (plain PyTorch) against the CPU's, and the
+# position DDPM's checkpoint-time evaluation through K1.
+
+# card vs CPU at 2048 points, of the largest value: the distance within
+# chip_smoke.py's EMD_CARD_RTOL (measured 1.3e-6 on an H100), its gradient
+# within EMD_GRAD_CARD_RTOL (measured 1.76e-4 in two runs): each gradient
+# element sums the match's row, and the match's weights exp(-16384 d) carry
+# a rounding gap of d into them 16384-fold, so the gradient's small elements
+# differ more.  A faulty run lies far beyond it: the same card run with TF32
+# products in the distances must differ from the CPU by more than
+# EMD_TF32_FLOOR (on the CPU, TF32-rounded inputs of the inner products put
+# the gradient 1.5 of its size away; the match kept in the backward, 5e7)
+EMD_CARD_RTOL = 1e-4
+EMD_GRAD_CARD_RTOL = 5e-4
+EMD_TF32_FLOOR = 10 * EMD_GRAD_CARD_RTOL
+
+
+@pytest.mark.cuda
+def test_emd_card_matches_cpu(cuda):
+    # 2048-point clouds (the evaluation's size): the distance and its
+    # gradient, card against CPU; fp32 sums in other orders, through weights
+    # exp(-16384 d) that multiply a rounding gap of d by 16384
+    from slide_tpu_torch.ops.emd import earth_mover_distance
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((4, 2048, 3), generator=gen) * torch.tensor([0.3, 0.2, 0.1])
+    b = torch.randn((4, 2048, 3), generator=gen) * torch.tensor([0.25, 0.2, 0.15])
+
+    def run(dev):
+        x = a.detach().to(dev).requires_grad_(True)
+        y = b.detach().to(dev).requires_grad_(True)
+        d = earth_mover_distance(x, y)
+        d.sum().backward()
+        return [t.detach().cpu() for t in (d, x.grad, y.grad)]
+
+    def gaps(got, want):
+        d_err = float(((got[0] - want[0]).abs() / want[0].abs()).max())
+        g_err = max(float((g - w).abs().max() / w.abs().max())
+                    for g, w in zip(got[1:], want[1:]))
+        return d_err, g_err
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        want, got = run("cpu"), run("cuda")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        faulty = run("cuda")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    d_err, g_err = gaps(got, want)
+    tf32_err = gaps(faulty, want)[1]
+    print(f"emd card vs cpu: distance {d_err:.3e}, gradient {g_err:.3e} (relative); "
+          f"with TF32 products, gradient {tf32_err:.3e}")
+    assert d_err <= EMD_CARD_RTOL and g_err <= EMD_GRAD_CARD_RTOL
+    assert tf32_err > EMD_TF32_FLOOR
+
+
+@pytest.mark.cuda
+def test_generation_eval_launches(cuda, tmp_path):
+    # train_position_ddpm with its eval hook at batch 2, T=20: two steps (one
+    # K1, one K2, one K3 each), a checkpoint, then 6 shapes sampled in
+    # batches of 4 by the raw weights and both EMA shadows, fused: exactly
+    # T x 2 batches x 3 weight sets K1 launches more
+    import os
+    import numpy as np
+    from slide_tpu_torch.configs import keypoint_ddpm_config
+    from slide_tpu_torch.train.driver import experiment_dirs, train_position_ddpm
+    cfg = keypoint_ddpm_config("airplane", batch_size=2)
+    cfg["diffusion_config"]["T"] = 20
+    cfg["shapenet_psr_dataset_config"].update(repeat_dataset=1, eval_batch_size=4,
+                                              num_samples_tested=6)
+    cfg["train_config"].update(root_directory=str(tmp_path / "exp"), iters_per_logging=1,
+                               epochs_per_ckpt=1)
+    root = _small_tree(tmp_path)
+    _build.launch_counts.clear()
+    state, _ = train_position_ddpm(cfg, data_dir=root, max_iters=2, eval_hook="auto",
+                                   verbose=False)
+    assert state.step == 2
+    assert dict(_build.launch_counts) == {"fps": 2, "fused_denoiser": 2 + 20 * 2 * 3,
+                                          "fused_denoiser_bwd": 2}
+    out = os.path.join(experiment_dirs(cfg)[0], "eval_result")
+    for sub in ("", "model_ema_0.99900", "model_ema_0.99990"):
+        with np.load(os.path.join(out, sub, "shapenet_psr_generated_data_16_pts_iter_1.npz")) as d:
+            assert d["points"].shape == (6, 16, 3) and np.isfinite(d["points"]).all()

@@ -225,7 +225,12 @@ def test_x0_chain_with_the_latent_network():
 
 
 def test_unported_sampler_raises():
-    with pytest.raises(NotImplementedError):
-        td.latent_denoise_and_reconstruct(None, None, 1, 3, (16, 9),
-                                          td.X0Schedule.from_config(_lat_sdc(5)),
-                                          None, sampler="fastdpm")
+    # FastDPM is ported (tests/test_torch_eval.py); an unknown sampler, and
+    # FastDPM with a warm start, raise as in the JAX package
+    sched = td.X0Schedule.from_config(_lat_sdc(5))
+    with pytest.raises(ValueError, match="unknown sampler"):
+        td.latent_denoise_and_reconstruct(None, None, 1, 3, (16, 9), sched, None,
+                                          sampler="ddim")
+    with pytest.raises(ValueError, match="full-chain"):
+        td.latent_denoise_and_reconstruct(None, None, 1, 3, (16, 9), sched, None,
+                                          sampler="fastdpm", n_steps=3)

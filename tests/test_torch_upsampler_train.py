@@ -28,6 +28,7 @@ Tolerances, each from a measurement (`pytest -rP` prints the distances):
   - the ties: 1e-5 of the largest element (measured 2.9e-7)"""
 
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -412,10 +413,16 @@ def test_train_upsampler_checkpoints_and_resumes(tmp_path):
     assert state.step == 3 and state.ema_rates == ()
     ckpt_dir = str(tmp_path / "exp" / cfg["pointnet_config"]["model_name"] / "checkpoint")
     assert sorted(os.listdir(ckpt_dir)) == ["pointnet_ckpt_1.pkl", "pointnet_ckpt_2.pkl"]
+    # resumed, with the checkpoint-time evaluation (the DPSR-grid L2 on the
+    # val split) at the checkpoint of the cadence that the step to 4 ends in
     state2, losses2 = tdriver.train_upsampler(cfg, data_dir=root, max_iters=4, device="cpu",
-                                              verbose=False)
+                                              eval_hook="auto", verbose=False)
     assert losses2[0][0] == 3 and state2.step == 4 and find_max_iter(ckpt_dir) == 3
     # the JAX package would resume from it
     assert jckpt.load_checkpoint(ckpt_dir)["iter"] == 3
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdriver.train_upsampler(cfg, data_dir=root, max_iters=4, device="cpu", eval_hook="auto")
+    out = str(tmp_path / "exp" / cfg["pointnet_config"]["model_name"] / "eval_result")
+    assert "shapenet_psr_dpsr_eval_result.pkl" in os.listdir(out)
+    with open(os.path.join(out, "shapenet_psr_dpsr_eval_result.pkl"), "rb") as f:
+        history = pickle.load(f)
+    assert history["iter"] == [3] and history["epoch"] == [0]
+    assert np.isfinite(history["dpsr_grid_L2_loss"]).all()
