@@ -107,12 +107,37 @@ line each as soon as it ends:
            and profiled run as above, the peak memory; then a few steps
            with the committed AE's round trip in front (exactly
            SAP_AE_FPS_PER_STEP FPS launches a step)
+  train_x0 the x0 engine's position DDPM (the keypoint preset at full width,
+           batch 32, X0_CONFIG: the loss block of the JAX package's e2e
+           test): one step's gradient as `train` holds it (card, CPU,
+           float64), the CPU and float64 runs on the card's chamfer picks
+           (a pick may part only at a tie, counted); `train_position_ddpm`
+           warm-up, counted run (exactly one K3, one K1 and one K2 a step)
+           and profiled run; every K1 and FPS shape it launched against its
+           plain version (`KernelInputs`); `train_x0_pair`: the eps and x0
+           steps on one batch in one process, timed in turns
+  train_generation, train_kp_cond  the tasks `generation` and
+           `keypoint_conditional_generation` at batch 32 on the tree's
+           2048-point clouds with normals (`tests/conditional_layout.py`:
+           the keypoint preset's widths, the JAX package's conditional
+           layout): the dual-tower net's forward on the card against the CPU
+           on COND_CHECK clouds, the card's kNN and FPS picks replayed, each
+           side against float64 (COND_NET_TOL); warm-up, counted run
+           (exactly the FPS launches the config gives a step, no K1 or K2)
+           and profiled run; every FPS shape against its plain version
+  train_bf16  the autoencoder's step at the shipped preset and batch 32 in
+           fp32 and under activation_dtype "bfloat16", same batch and draws:
+           every FPS and kNN pick whose input equals the fp32 step's is the
+           fp32 step's (the keypoints' and the encoder's all are), finite
+           losses, fp32 parameters; ms a step and peak memory of each
   eval     the checkpoint-time evaluations through the training driver's
            hooks (`train/driver.py::make_*_eval_hook`), with the committed
            checkpoints (raw weights and every EMA shadow they hold): the
            position DDPM's at the shipped eval_batch_size 64 and
            num_samples_tested 128, T=1000, fused (exactly T x batches x
-           weight sets K1 launches, no FPS); the feature DDPM's over the
+           weight sets K1 launches, no FPS), and the same for the x0
+           engine's hook (`eval_x0`, x0_denoise chains) with the weights
+           `train_x0` left; the feature DDPM's over the
            committed AE on the airplane tree's train split (16 shapes: the
            conditional evaluation subsamples that split), T=1000 (K1 and
            FPS exact); the autoencoder's (the visual and the three
@@ -156,11 +181,12 @@ from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
 from slide_tpu_torch.data import get_dataloader, write_synthetic_shapenet_psr
 from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
                                        diffusion_training_loss, latent_config_weights,
-                                       latent_train_loss)
+                                       latent_train_loss, x0_training_loss)
 from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder
 from slide_tpu_torch.nn import modules as sa_modules
 from slide_tpu_torch.nn import neighborhood
-from slide_tpu_torch.ops import knn_points
+from slide_tpu_torch.nn.precision import activation_dtype_scope
+from slide_tpu_torch.ops import chamfer, knn_points
 from slide_tpu_torch.pipeline import DEFAULT_CKPTS, build_stages, generate, with_fastdpm
 from slide_tpu_torch.sap import (DPSR, count_cells_and_faces, marching_tetrahedra_numpy,
                                  mesh_to_host, mirror_and_concat,
@@ -169,8 +195,10 @@ from slide_tpu_torch.train import driver as train_driver
 from slide_tpu_torch.train.checkpoint import find_max_iter
 from slide_tpu_torch.weights import load_flax_params, load_inference_params, read_checkpoint
 
-# the mesh gate, shared with the tests (numpy only)
+# the mesh gate and the conditional tasks' layouts, shared with the tests
+# (neither imports JAX)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from conditional_layout import conditional_task_config, fps_launches_per_step  # noqa: E402
 from mesh_compare import MESH_NORMAL_ATOL, MESH_VERT_ATOL, mesh_difference  # noqa: E402
 
 faulthandler.dump_traceback_later(900, exit=True)
@@ -275,6 +303,29 @@ RECON_SHAPES = 8
 # of d by 16384)
 EMD_CHECK = 4
 EMD_CARD_RTOL = 1e-4
+# the x0 engine's position DDPM: the keypoint preset with the loss block of
+# tests/test_train_e2e.py::test_x0_engine_position_training
+X0_CONFIG = {"beta_schedule": "linear", "beta_start": 1e-4, "beta_end": 0.02,
+             "num_diffusion_timesteps": 1000, "data_clamp_range": 1.0,
+             "model_output_scale_factor": 1.0, "loss_type": "mixed_cd_t_epsilon_mse",
+             "t_trunction": 100, "normal_loss_type": "mse"}
+# a chamfer pick of a later run (CPU fp32, float64) may part from the
+# card's only where the two candidates' float64 squared distances lie within
+# CHAMFER_TIE_RTOL of the clouds' squared scale (fp32 rounding of the matmul
+# form); such rows are counted as ties and take the card's pick
+CHAMFER_TIE_RTOL = 1e-6
+# the eps and x0 position steps timed in turns in one process
+PAIR_STEPS = 50
+# the conditional tasks (tests/conditional_layout.py) at batch 32 on the
+# 2048-point clouds with normals; the dual-tower net's forward on the card
+# against the CPU on COND_CHECK clouds, the card's kNN and FPS picks replayed,
+# each side and card vs CPU within COND_NET_TOL x max(1, max |float64|)
+COND_WARMUP, COND_STEPS = 3, 20
+COND_CHECK = 2
+COND_NET_TOL = 1e-4
+# the autoencoder's step in bf16 (`activation_dtype`) against fp32, batch
+# 32: a step's picks compared, then warm-up and timed steps of each
+BF16_WARMUP, BF16_STEPS = 2, 5
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -1317,6 +1368,278 @@ def phase_train_sap(dev, tmp: str) -> dict:
     return {**res, "grad": grad, "peak_memory_bytes": peak, "ae_launches": ae_launches}
 
 
+class ChamferPicks:
+    """The chamfer distance matrices of a loss's first run (on the card),
+    handed to its later runs (the CPU's fp32 and float64 runs) so that all
+    score the same nearest neighbours.  A later run's own picks must be the
+    card's, or part from them where the two candidates' float64 squared
+    distances lie within CHAMFER_TIE_RTOL of the clouds' squared scale (a
+    tie): counted."""
+
+    def __init__(self):
+        self.recorded, self.ties, self.replayed = [], 0, 0
+
+    @contextlib.contextmanager
+    def run(self):
+        real, first = chamfer.pairwise_sqdist, not self.recorded
+        it = iter(self.recorded)
+
+        def recording(x, y):
+            d = real(x, y)
+            self.recorded.append((x.detach().cpu(), y.detach().cpu(), d.cpu()))
+            return d
+
+        def replaying(x, y):
+            c_x, c_y, c_d = next(it)
+            d = real(x, y)
+            tol = CHAMFER_TIE_RTOL * float(c_x.square().sum(-1).max() + c_y.square().sum(-1).max())
+            d64 = ((c_x.double()[:, :, None] - c_y.double()[:, None]) ** 2).sum(-1)
+            for dim in (2, 1):
+                own, card = d.argmin(dim).cpu(), c_d.argmin(dim)
+                for row in (own != card).nonzero().tolist():
+                    pair = [d64.select(dim, int(i))[tuple(row)] for i in
+                            (own[tuple(row)], card[tuple(row)])]
+                    if abs(float(pair[0] - pair[1])) > tol:
+                        raise AssertionError(f"chamfer: a pick at {row} parts from the "
+                                             f"card's beyond a tie")
+                    self.ties += 1
+            self.replayed += 1
+            return c_d.to(device=x.device)
+
+        chamfer.pairwise_sqdist = recording if first else replaying
+        try:
+            yield self
+        finally:
+            chamfer.pairwise_sqdist = real
+
+
+def _last_checkpoint(cfg: dict) -> str:
+    ckpt_dir = train_driver.experiment_dirs(cfg)[1]
+    return os.path.join(ckpt_dir, f"pointnet_ckpt_{find_max_iter(ckpt_dir)}.pkl")
+
+
+def phase_train_x0(dev, root: str, tmp: str) -> dict:
+    """The x0 engine's position DDPM (the keypoint preset at full width,
+    batch 32, with X0_CONFIG) through `train_position_ddpm`: one step's
+    gradient, the card's fused denoiser against the CPU module and float64
+    on the card's chamfer picks; the counted run (exactly one K3, one K1 and
+    one K2 a step) and the profiled run; every K1 and FPS shape it launched
+    against its plain version."""
+    cfg = _task_config(keypoint_ddpm_config("airplane", batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_x0"))
+    cfg["standard_diffusion_config"] = dict(X0_CONFIG)
+    cfg["train_config"]["iters_per_logging"] = 50
+    sdc = cfg["standard_diffusion_config"]
+    batch = _first_batch(cfg, dev)
+    x = train_driver.sample_train_keypoints(batch["points"], cfg["shapenet_psr_dataset_config"])
+    picks = ChamferPicks()
+
+    def loss_fn(net_fn, xx, ts, z):
+        with picks.run():
+            return x0_training_loss(net_fn, xx, X0Schedule.from_config(sdc, xx.device),
+                                    loss_type=sdc["loss_type"],
+                                    normal_loss_type=sdc["normal_loss_type"], ts=ts,
+                                    z=z)["training_loss"]
+
+    grad_err = check_train_gradient("train_x0", cfg["pointnet_config"], x, batch["label"],
+                                    loss_fn, dev)
+    log("train_x0_chamfer", runs=1 + picks.replayed, ties=picks.ties,
+        tie_rtol=CHAMFER_TIE_RTOL)
+    if picks.replayed != 2:
+        raise AssertionError(f"train_x0: {picks.replayed} chamfer runs replayed, expected 2")
+    inputs = KernelInputs()
+    with inputs.recording():
+        res = run_task("train_x0", train_driver.train_position_ddpm, cfg, TRAIN_WARMUP,
+                       TRAIN_STEPS, {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1},
+                       PROFILE_STEPS)
+    k1_err = inputs.check("train_x0")
+    pair_x0_eps(cfg, batch, dev)
+    return {**res, "grad_err": grad_err, "k1_err": k1_err, "chamfer_ties": picks.ties,
+            "cfg": cfg, "ckpt": _last_checkpoint(cfg)}
+
+
+def pair_x0_eps(cfg: dict, batch: dict, dev) -> None:
+    """The eps and x0 position steps in one process on one batch, timed in
+    turns (eps, x0, x0, eps; PAIR_STEPS steps each, the host's clock around
+    synchronised runs): ms a step of each."""
+    eps_cfg = {k: v for k, v in cfg.items() if k != "standard_diffusion_config"}
+    steps = {}
+    for name, c in (("eps", eps_cfg), ("x0", cfg)):
+        state, step = train_driver.build_position_ddpm(c, seed=0, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        step(state, batch, gen)
+        steps[name] = (state, step, gen)
+    times = {"eps": [], "x0": []}
+    for name in ("eps", "x0", "x0", "eps"):
+        state, step, gen = steps[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(PAIR_STEPS):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+        times[name].append(1e3 * (time.perf_counter() - t0) / PAIR_STEPS)
+    log("train_x0_pair", steps=PAIR_STEPS, order=["eps", "x0", "x0", "eps"],
+        eps_ms_per_step=times["eps"], x0_ms_per_step=times["x0"])
+
+
+def check_cond_forward(cfg: dict, batch: dict, dev) -> dict:
+    """The dual-tower net (its weights drawn from seed 0) on the card and on
+    the CPU on the batch's first COND_CHECK clouds with normals, conditioned
+    on their keypoints (FPS on the card): the card's FPS picks checked and
+    its kNN searches replayed into the CPU run, both against a float64 run
+    on the same picks and searches."""
+    import copy
+    n = COND_CHECK
+    net = train_driver.init_params(ConditionalPointNet2(cfg["pointnet_config"]),
+                                   torch.Generator().manual_seed(0)).eval()
+    x = torch.cat([batch["points"][:n], batch["normals"][:n]], dim=-1)
+    cond = train_driver.sample_train_keypoints(batch["points"][:n],
+                                               cfg["shapenet_psr_dataset_config"])
+    ts = torch.tensor([3, 700], device=dev)
+    label = batch["label"][:n]
+    outs = {}
+
+    def run(key, d, dtype):
+        net_ = copy.deepcopy(net).to(d, dtype)
+        with torch.no_grad():
+            outs[key] = net_(x.to(d, dtype), ts=ts.to(d), label=label.to(d),
+                             condition=cond.to(d, dtype)).double().cpu()
+
+    real_knn, real_fps = neighborhood.knn_points, sa_modules.furthest_point_sample
+    try:
+        knn_calls, fps_picks = _record_knn(), _record_fps()
+        before = _build.launch_counts["fps"]
+        run("card", dev, torch.float32)
+        torch.cuda.synchronize()
+        fps_launches = _build.launch_counts["fps"] - before
+        neighborhood.knn_points, sa_modules.furthest_point_sample = real_knn, real_fps
+        seen = _replay_knn(knn_calls, n)
+        _replay_fps(fps_picks, check=True)
+        run("cpu", "cpu", torch.float32)
+        _replay_knn_float64(knn_calls)
+        _replay_fps(fps_picks, check=False)
+        run("float64", "cpu", torch.float64)
+    finally:
+        neighborhood.knn_points, sa_modules.furthest_point_sample = real_knn, real_fps
+    ref = outs["float64"]
+    scale = max(1.0, float(ref.abs().max()))
+    errs = {"card_vs_float64": float((outs["card"] - ref).abs().max()),
+            "cpu_vs_float64": float((outs["cpu"] - ref).abs().max()),
+            "card_vs_cpu": float((outs["card"] - outs["cpu"]).abs().max())}
+    want_fps = fps_launches_per_step(cfg) - 1      # the keypoints were taken above
+    log("train_kp_cond_forward", clouds=n, shape=list(outs["card"].shape), max_abs=scale,
+        tol=COND_NET_TOL * scale, knn_calls=seen["calls"], knn_ties=seen["ties"],
+        fps_launches=fps_launches, fps_expected=want_fps, **errs)
+    if seen["calls"] != len(knn_calls) or fps_launches != want_fps:
+        raise AssertionError(f"kp_cond forward: {seen['calls']} of {len(knn_calls)} kNN calls "
+                             f"replayed, {fps_launches} FPS launches, expected {want_fps}")
+    if max(errs.values()) > COND_NET_TOL * scale:
+        raise AssertionError(f"kp_cond forward: {errs} beyond {COND_NET_TOL} of {scale}")
+    return errs
+
+
+def phase_train_cond(dev, root: str, tmp: str) -> dict:
+    """`generation` and `keypoint_conditional_generation` through
+    `train_position_ddpm` at batch 32 on the 2048-point clouds with normals
+    (tests/conditional_layout.py: the keypoint preset's widths), the
+    module path: the dual-tower net's forward card vs CPU, then each task's
+    counted run (exactly the FPS launches its config gives a step, no K1 or
+    K2) and profiled run; every FPS shape launched against its plain
+    version."""
+    out = {}
+    for name, task in (("generation", "generation"),
+                       ("kp_cond", "keypoint_conditional_generation")):
+        cfg = _task_config(conditional_task_config(task, batch_size=TRAIN_BATCH), root,
+                           os.path.join(tmp, f"exp_{name}"))
+        extra = {}
+        if name == "kp_cond":
+            extra = check_cond_forward(cfg, _first_batch(cfg, dev), dev)
+        inputs = KernelInputs()
+        with inputs.recording():
+            res = run_task(f"train_{name}", train_driver.train_position_ddpm, cfg, COND_WARMUP,
+                           COND_STEPS, {"fps": fps_launches_per_step(cfg), "fused_denoiser": 0,
+                                        "fused_denoiser_bwd": 0}, TASK_PROFILE_STEPS)
+        inputs.check(f"train_{name}")
+        out[name] = {**res, **extra}
+    return out
+
+
+def _record_picks():
+    """Record every FPS launch (the kernel's wrapper: the keypoints, the SA
+    levels, the decoder's trims, the targets) and kNN search: (kind,
+    inputs, picks) on the host.  Returns (the list, a function that
+    restores the wrapped functions)."""
+    calls = []
+    real_fps, real_knn = fps_mod.fps_cuda, neighborhood.knn_points
+
+    def fps(xyz, k, start, num_forced=0):
+        idx = real_fps(xyz, k, start, num_forced)
+        calls.append(("fps", (xyz.cpu(), start.cpu()), idx.cpu()))
+        return idx
+
+    def knn(query, points, k):
+        sqd, idx = real_knn(query, points, k)
+        calls.append(("knn", (query.cpu(), points.cpu()), idx.cpu()))
+        return sqd, idx
+
+    fps_mod.fps_cuda, neighborhood.knn_points = fps, knn
+
+    def restore():
+        fps_mod.fps_cuda, neighborhood.knn_points = real_fps, real_knn
+    return calls, restore
+
+
+def phase_train_bf16(dev, root: str, tmp: str) -> dict:
+    """The autoencoder's step (`build_ae_training`'s, as
+    tests/test_precision.py::test_ae_train_step_finite_bf16 runs it) at the
+    shipped preset's full width and batch 32, under activation_dtype
+    "bfloat16" and in fp32, on the same batch and draws: every FPS and kNN
+    pick whose input equals the fp32 step's must be the fp32 step's (the
+    keypoints' and the encoder's, on the input cloud, all are such picks);
+    finite losses, fp32 parameters; ms a step and peak memory of each."""
+    cfg = _task_config(autoencoder_config("airplane", batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_bf16"))
+    batch = _first_batch(cfg, dev)
+    n_enc = 1 + 2 * len(ENCODER_FPS)      # the keypoints, then FPS and kNN a level
+    runs = {}
+    for name, dtype in (("fp32", None), ("bf16", "bfloat16")):
+        with activation_dtype_scope(dtype):
+            state, step = train_driver.build_ae_training(cfg, seed=0, device=dev)
+            calls, restore = _record_picks()
+            try:
+                loss = float(step(state, batch, torch.Generator(device=dev).manual_seed(11)))
+            finally:
+                restore()
+            for _ in range(BF16_WARMUP):
+                step(state, batch, torch.Generator(device=dev).manual_seed(12))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for i in range(BF16_STEPS):
+                last = step(state, batch, torch.Generator(device=dev).manual_seed(13 + i))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / BF16_STEPS
+            runs[name] = {"loss": loss, "last_loss": float(last), "ms_per_step": ms,
+                          "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                          "calls": calls,
+                          "fp32_params": all(p.dtype == torch.float32
+                                             for p in state.net.parameters())}
+            del state, step
+    c32, c16 = runs["fp32"].pop("calls"), runs["bf16"].pop("calls")
+    kinds_equal = [c[0] for c in c32] == [c[0] for c in c16]
+    same = [i for i, (a, b) in enumerate(zip(c32, c16))
+            if all(torch.equal(u, v) for u, v in zip(a[1], b[1]))]
+    differ = [i for i in same if not torch.equal(c32[i][2], c16[i][2])]
+    log("train_bf16", batch=TRAIN_BATCH, calls=len(c32), same_input_calls=len(same),
+        encoder_calls=n_enc, picks_differ=differ, kinds_equal=kinds_equal, **runs)
+    finite = all(np.isfinite([r["loss"], r["last_loss"]]).all() for r in runs.values())
+    if not (kinds_equal and same[:n_enc] == list(range(n_enc)) and not differ and finite
+            and runs["bf16"]["fp32_params"]):
+        raise AssertionError(f"train_bf16: picks differ at {differ}, same-input calls "
+                             f"{same[:n_enc]}, runs {runs}")
+    return runs
+
+
 def _committed_weights(net_fn, path: str, dev):
     """The committed checkpoint's net on the card (raw weights) and its EMA
     shadows as the training state holds them (lists of tensors parallel to
@@ -1407,19 +1730,21 @@ def run_hook(name: str, hook, net, shadows, expected: dict, files: list) -> dict
     return {"launches": launches, "seconds": seconds}
 
 
-def phase_eval(dev, root: str, sap_root: str, tmp: str) -> tuple[dict, float]:
+def phase_eval(dev, root: str, sap_root: str, tmp: str, x0: dict) -> tuple[dict, float]:
     """The evaluations (`run_evals`), then every kernel shape they launched
     held against its plain version on the inputs it had there: (the
     evaluations' results, K1's largest error in that check)."""
     inputs = KernelInputs()
     with inputs.recording():
-        res = run_evals(dev, root, sap_root, tmp)
+        res = run_evals(dev, root, sap_root, tmp, x0)
     return res, inputs.check("eval")
 
 
-def run_evals(dev, root: str, sap_root: str, tmp: str) -> dict:
+def run_evals(dev, root: str, sap_root: str, tmp: str, x0: dict) -> dict:
     """The four training tasks' checkpoint-time evaluations, the mesh
-    reconstruction and the metrics, with the committed checkpoints."""
+    reconstruction and the metrics, with the committed checkpoints; the x0
+    engine's position evaluation with the weights `phase_train_x0` left
+    (`x0`: its config and last checkpoint)."""
     from slide_tpu_torch.eval import compute_all_metrics, jsd_between_point_cloud_sets
     from slide_tpu_torch.eval import mesh_recon
     from slide_tpu_torch.eval.generation import generated_file
@@ -1450,6 +1775,22 @@ def run_evals(dev, root: str, sap_root: str, tmp: str) -> dict:
         kp_ok = d["points"].shape == (EVAL_SAMPLES, 16, 3) and bool(np.isfinite(d["points"]).all())
     if not kp_ok:
         raise AssertionError("eval_kp: the generated keypoints are not (128, 16, 3) finite")
+
+    # the x0 engine's position DDPM: the same test set, each chain x0_denoise
+    # over T steps of K1
+    cfg = x0["cfg"]
+    trainset = cfg["shapenet_psr_dataset_config"]
+    net, shadows = _committed_weights(lambda: ConditionalPointNet2(cfg["pointnet_config"]),
+                                      x0["ckpt"], dev)
+    t_x0 = cfg["standard_diffusion_config"]["num_diffusion_timesteps"]
+    x0_files = files(cfg, name, 1 + len(shadows))
+    res["x0"] = run_hook("x0", train_driver.make_generation_eval_hook(cfg), net, shadows,
+                         {"fused_denoiser": t_x0 * batches * (1 + len(shadows)), "fps": 0},
+                         x0_files)
+    with np.load(x0_files[0]) as d:
+        x0_ok = d["points"].shape == (EVAL_SAMPLES, 16, 3) and bool(np.isfinite(d["points"]).all())
+    if not x0_ok:
+        raise AssertionError("eval_x0: the generated keypoints are not (128, 16, 3) finite")
 
     # the feature DDPM over the committed AE, keypoints from the train split
     cfg = _task_config(latent_ddpm_config("airplane"), root, os.path.join(tmp, "eval_lat"))
@@ -1627,8 +1968,11 @@ def main():
                                      num_points=3000, shape_variety=True, with_psr=False)
         log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
         tasks = {"kp": phase_train(dev, root, tmp), "ae": phase_train_ae(dev, root, tmp),
-                 "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp)}
-        evals, eval_k1_err = phase_eval(dev, root, os.path.join(tmp, "shapenet_psr_sap"), tmp)
+                 "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp),
+                 "x0": phase_train_x0(dev, root, tmp), **phase_train_cond(dev, root, tmp)}
+        phase_train_bf16(dev, root, tmp)
+        evals, eval_k1_err = phase_eval(dev, root, os.path.join(tmp, "shapenet_psr_sap"), tmp,
+                                        tasks["x0"])
 
     def per_task(name):
         return {task: res["launches"].get(name, 0) for task, res in tasks.items()}
@@ -1672,7 +2016,7 @@ def main():
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
         "launches": launches.get("fused_denoiser", 0),
-        "max_abs_err": max(k1_err, eval_k1_err),
+        "max_abs_err": max(k1_err, eval_k1_err, tasks["x0"]["k1_err"]),
         "ms": sum(r[0] for r in nets) / 2, "plain_ms": sum(r[1] for r in nets) / 2,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
         "module_ms": sum(r[2] for r in nets) / 2,

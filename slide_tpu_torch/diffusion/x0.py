@@ -1,7 +1,11 @@
-"""x0-parameterized DDPM sampler (counterpart: `slide_tpu/diffusion/x0.py`),
-the engine of the feature DDPM.  The model predicts epsilon; a step turns it
-into a clipped x0 prediction and samples the posterior.  Noise comes from
-`noise_fn(shape)`: one draw for x_T (when no x is given) and one per step.
+"""x0-parameterized DDPM engine (counterpart: `slide_tpu/diffusion/x0.py`),
+the engine of the feature DDPM and of the chamfer-loss position DDPM.  The
+model predicts epsilon; a step turns it into a clipped x0 prediction and
+samples the posterior; training (`x0_training_loss`) scores the predicted
+x0 with chamfer, F-score and MSE terms.  Noise comes from `noise_fn(shape)`:
+one draw for x_T (when no x is given) and one per step; the training loss
+and the forward diffusions draw from a `torch.Generator` unless handed
+their draws.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from slide_tpu_torch.diffusion.eps import NoiseFn
+from slide_tpu_torch.ops.chamfer import calc_cd
 
 
 def _warmup_beta(beta_start, beta_end, t, frac):
@@ -44,17 +49,25 @@ def get_beta_schedule(beta_schedule: str, *, beta_start: float, beta_end: float,
 
 @dataclasses.dataclass(frozen=True)
 class X0Schedule:
-    """The sampler's coefficients, computed in float64, stored fp32."""
+    """The engine's coefficients, computed in float64, stored fp32.
+    `t_truncation`: the mixed losses' bound (timesteps below it take the
+    chamfer term), from `t_trunction` (sic, the reference's key) or else
+    from `xt_coefficient_trunction` (the timesteps whose sqrt(1 / abar)
+    lies below it); 0 for the other loss types."""
 
     T: int
     data_clamp_range: float
     model_output_scale_factor: float
+    scale_loss_terms: bool
+    t_truncation: int
     alphas: torch.Tensor
     alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
+    sqrt_alphas: torch.Tensor
+    sqrt_one_minus_alphas: torch.Tensor
     logvar: torch.Tensor
 
     @staticmethod
@@ -74,6 +87,13 @@ class X0Schedule:
             logvar = np.log(np.maximum(posterior_variance, 1e-20))
         else:
             raise ValueError(f"variance type {model_var_type} not supported")
+        sqrt_recip = np.sqrt(1.0 / acp)
+        t_trunc = 0
+        if config.get("loss_type") in ("mixed_cd_p_epsilon_mse", "mixed_cd_t_epsilon_mse"):
+            if "t_trunction" in config:
+                t_trunc = int(config["t_trunction"])
+            else:
+                t_trunc = int((sqrt_recip < config["xt_coefficient_trunction"]).sum())
 
         def f32(a):
             return torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -82,11 +102,15 @@ class X0Schedule:
             T=betas.shape[0],
             data_clamp_range=config["data_clamp_range"],
             model_output_scale_factor=config["model_output_scale_factor"],
+            scale_loss_terms=config.get("scale_loss_terms", False),
+            t_truncation=t_trunc,
             alphas=f32(alphas), alphas_cumprod=f32(acp),
-            sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / acp)),
+            sqrt_recip_alphas_cumprod=f32(sqrt_recip),
             sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / acp - 1.0)),
             posterior_mean_coef1=f32(betas * np.sqrt(acp_prev) / (1.0 - acp)),
             posterior_mean_coef2=f32((1.0 - acp_prev) * np.sqrt(alphas) / (1.0 - acp)),
+            sqrt_alphas=f32(np.sqrt(alphas)),
+            sqrt_one_minus_alphas=f32(np.sqrt(1.0 - alphas)),
             logvar=f32(logvar))
 
 
@@ -148,3 +172,86 @@ def x0_denoise(net_fn: Callable, shape: Sequence[int], sched: X0Schedule,
         x, _ = denoising_step(sched, x, ts, out, noise_fn(shape),
                               complete_x0=complete_x0, keypoint_mask=keypoint_mask)
     return pin(x)
+
+
+LOSS_TYPES = ("cd_p", "cd_t", "x0_mse", "epsilon_mse", "mixed_cd_p_epsilon_mse",
+              "mixed_cd_t_epsilon_mse")
+
+
+def x0_training_loss(net_fn: Callable, x: torch.Tensor, sched: X0Schedule,
+                     generator: Optional[torch.Generator] = None, *,
+                     loss_type: str = "cd_p", normal_loss_type: str = "cos",
+                     ts: Optional[torch.Tensor] = None,
+                     z: Optional[torch.Tensor] = None) -> dict:
+    """The x0 engine's training losses: x_t = sqrt(abar) x + sqrt(1 - abar) z
+    at one uniformly drawn timestep per cloud, the network's epsilon (times
+    the output scale), the unclipped x0 it implies (x_t held constant), and
+    against x: `calc_cd`'s terms (with the F-score at 1e-4 and the feature
+    terms where x has channels past xyz), "x0_mse", "epsilon_mse", and
+    "training_loss" per `loss_type`.  With `scale_loss_terms` the x0 and the
+    target are divided by sqrt(1 / abar - 1) first.  Returns each term's
+    batch mean (0-d tensors).  `ts` (B,) and `z` (x's shape) are drawn from
+    `generator` unless given (a test hands in the JAX draws)."""
+    if loss_type not in LOSS_TYPES:
+        raise ValueError(f"loss type {loss_type} is not supported")
+    b = x.shape[0]
+    if ts is None:
+        ts = torch.randint(0, sched.T, (b,), generator=generator,
+                           device=generator.device).to(x.device)
+    if z is None:
+        z = torch.randn(x.shape, generator=generator, device=generator.device,
+                        dtype=x.dtype).to(x.device)
+    abar = _bc(sched.alphas_cumprod, ts, x.ndim)
+    x_t = torch.sqrt(abar) * x + torch.sqrt(1.0 - abar) * z
+    model_output = net_fn(x_t, ts) * sched.model_output_scale_factor
+    x0 = (_bc(sched.sqrt_recip_alphas_cumprod, ts, x.ndim) * x_t.detach()
+          - _bc(sched.sqrt_recipm1_alphas_cumprod, ts, x.ndim) * model_output)
+    target = x
+    if sched.scale_loss_terms:
+        scale = _bc(sched.sqrt_recipm1_alphas_cumprod, ts, x.ndim)
+        x0 = x0 / scale
+        target = target / scale
+
+    terms = calc_cd(x0, target.detach(), calc_f1=True, f1_threshold=0.0001,
+                    normal_loss_type=normal_loss_type)
+    terms["x0_mse"] = torch.sum((x0 - target) ** 2, dim=2).mean(dim=1)
+    terms["epsilon_mse"] = torch.sum((model_output - z) ** 2, dim=2).mean(dim=1)
+    zero = torch.zeros_like(terms["cd_p"])
+    feat_p = terms.get("cd_feature_p", zero)
+    feat_t = terms.get("cd_feature_t", zero)
+    if loss_type == "cd_p":
+        loss = terms["cd_p"] + feat_p
+    elif loss_type == "cd_t":
+        loss = terms["cd_t"] + feat_t
+    elif loss_type in ("x0_mse", "epsilon_mse"):
+        loss = terms[loss_type]
+    else:
+        small = (ts < sched.t_truncation).to(terms["cd_p"].dtype)
+        cd = terms["cd_p"] + feat_p if loss_type == "mixed_cd_p_epsilon_mse" \
+            else terms["cd_t"] + feat_t
+        loss = small * cd + (1 - small) * terms["epsilon_mse"]
+    terms["training_loss"] = loss
+    return {k: torch.mean(v) for k, v in terms.items()}
+
+
+def diffuse(x: torch.Tensor, sched: X0Schedule, noise_fn: NoiseFn, *, curr_step: int = 0,
+            n_steps: Optional[int] = None) -> torch.Tensor:
+    """Forward diffusion q(x_{t+1} | x_t) step by step: x is x_curr_step,
+    the result x_{curr_step + n_steps} (n_steps up to T, and at most the
+    steps left).  One `noise_fn(shape)` draw a step."""
+    if curr_step >= sched.T:
+        raise ValueError(f"curr_step {curr_step} must be < T={sched.T}")
+    if n_steps is None or curr_step + n_steps > sched.T:
+        n_steps = sched.T - curr_step
+    for t in range(curr_step, curr_step + n_steps):
+        x = (sched.sqrt_alphas[t].to(x.device) * x
+             + sched.sqrt_one_minus_alphas[t].to(x.device) * noise_fn(tuple(x.shape)))
+    return x
+
+
+def diffuse_t_steps(x0: torch.Tensor, t: int, sched: X0Schedule,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """The one-shot jump x_t ~ q(x_t | x_0) on the standard-normal `noise`,
+    t in [0, T - 1]."""
+    abar = sched.alphas_cumprod[t].to(x0.device)
+    return torch.sqrt(abar) * x0 + torch.sqrt(1.0 - abar) * noise

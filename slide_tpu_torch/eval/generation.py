@@ -9,7 +9,10 @@ timing [, keypoint, keypoint_feature, gt_points, normals].
 The chain runs on the device of `device` (the card unless the caller passes
 "cpu"); with `fused=True` (the default) an unconditional chain whose net is
 in the fused scope runs the fused denoiser (`make_fused_net_fn`: K1 on the
-card, its plain version on the CPU).  Every draw comes from one generator
+card, its plain version on the CPU).  The conditional tasks condition the
+chain on each shape's keypoints (FPS of its cloud, with the dataset's
+keypoint noise), and a net with condition towers encodes them once per
+chain (`conditioned_net_fn`).  Every draw comes from one generator
 seeded with `seed + rank`, or from the caller's `noise_fn(shape)` (normal
 draws, in the JAX package's order: a batch's keypoint noise, then its
 chain) and `start_fn(b, n)` (the decode's FPS starts).
@@ -48,6 +51,23 @@ def generated_file(save_dir: str, num_points: int, rank: int, world_size: int,
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def conditioned_net_fn(net, label: torch.Tensor, condition: Optional[torch.Tensor],
+                       fused_fn: Optional[Callable] = None) -> Callable:
+    """A chain's `net_fn(x, ts)`: the fused denoiser `fused_fn` where given
+    and there is no condition; else the module, with the condition's
+    towers encoded once here and their cache used at every step (a net
+    without towers takes the condition cloud itself)."""
+    if fused_fn is not None and condition is None:
+        return lambda x, ts: fused_fn(x, ts, label)
+    if condition is None:
+        return lambda x, ts: net(x, ts=ts, label=label)
+    if isinstance(net, ConditionalPointNet2) and (net.include_local_feature
+                                                  or net.include_global_feature):
+        cache = net.encode_condition(condition)
+        return lambda x, ts: net(x, ts=ts, label=label, cond_cache=cache)
+    return lambda x, ts: net(x, ts=ts, label=label, condition=condition)
 
 
 def _loader(trainset_config: dict, conditional: bool, rank: int, world_size: int, seed: int,
@@ -116,9 +136,6 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
         raise ValueError("only shapenet_psr_dataset is supported")
     conditional = task in ("keypoint_conditional_generation",
                            "latent_keypoint_conditional_generation")
-    if conditional and latent_sampler is None and custom_sampler is None:
-        raise NotImplementedError("the denoiser's condition-cloud branch: not ported yet "
-                                  "(ROADMAP Queue A, item 18)")
     dev = resolve_device(device)
     num_points = trainset_config["num_keypoints"] if task == "keypoint_generation" \
         else trainset_config["npoints"]
@@ -134,12 +151,8 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
             and isinstance(net, ConditionalPointNet2):
         fused_fn = make_fused_net_fn(net.config, net, num_points)
 
-    def sample(label):
-        def net_fn(x, ts):
-            if fused_fn is not None:
-                return fused_fn(x, ts, label)
-            return net(x, ts=ts, label=label)
-
+    def sample(label, condition):
+        net_fn = conditioned_net_fn(net, label, condition, fused_fn)
         shape = (label.shape[0], num_points, point_feature_dim)
         if sampler == "fastdpm":
             return fast_sampling(net_fn, shape, sched, diffusion_config_of(sched), noise_fn,
@@ -197,7 +210,7 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
             elif custom_sampler is not None:
                 pts = custom_sampler(noise_fn, label, condition)
             else:
-                pts = sample(label)
+                pts = sample(label, condition)
             _sync(dev)
             out["timing"].extend([(time.time() - t_start) / b] * b)
             out["points"].append(pts.cpu().numpy())

@@ -1379,7 +1379,8 @@ def make_fused_net_fn(config: Mapping[str, Any], net: ConditionalPointNet2,
 
     def net_fn(x, ts, label):
         with torch.no_grad():
-            t4 = net.t_embedder(ts)
+            # fp32 whatever the activation dtype: the kernels keep their own
+            t4 = net.t_embedder(ts).float()
             cls = net.class_emb(label.long())
             return fused_forward(spec, packed, x, t4, cls)
 

@@ -24,6 +24,7 @@ from torch import nn
 from slide_tpu_torch.models.denoiser import ConditionalPointNet2
 from slide_tpu_torch.models.encoder import PointNetEncoder
 from slide_tpu_torch.nn.distributions import DiagonalGaussian
+from slide_tpu_torch.nn.layers import Linear
 from slide_tpu_torch.nn.modules import FeatureMapModule
 from slide_tpu_torch.ops import furthest_point_sample, gather_points
 
@@ -125,7 +126,7 @@ class PointUpsampleDecoder(nn.Module):
         self.out_dim = hp["out_dim"]
         self.in_position_and_normal_dim = hp.get("in_position_and_normal_dim",
                                                  hp["out_dim"])
-        self.fc_layer = nn.Linear(
+        self.fc_layer = Linear(
             decoder_feature_out_dim(hp) + self.in_position_and_normal_dim,
             self.out_dim * self.point_upsample_factor)
 

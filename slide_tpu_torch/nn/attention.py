@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from slide_tpu_torch.nn.layers import TailGroupNorm
+from slide_tpu_torch.nn.layers import Linear, TailGroupNorm
 from slide_tpu_torch.ops import count_to_mask
 
 
@@ -32,15 +32,15 @@ class AttentionPool(nn.Module):
         self.attention_bn = attention_bn
         self.transform_grouped_feat_out = transform_grouped_feat_out
         self.last_activation = last_activation
-        self.feat_conv = nn.Linear(c_in1, c1)
-        self.grouped_feat_conv = nn.Linear(c_in2, c2)
+        self.feat_conv = Linear(c_in1, c1)
+        self.grouped_feat_conv = Linear(c_in2, c2)
         if attention_bn:
             self.w_norm_1 = TailGroupNorm(min(32, c1 + c2), c1 + c2)
             self.w_norm_2 = TailGroupNorm(min(32, inter), inter)
-        self.w_conv_1 = nn.Linear(c1 + c2, inter)
-        self.w_conv_2 = nn.Linear(inter, c_out)
+        self.w_conv_1 = Linear(c1 + c2, inter)
+        self.w_conv_2 = Linear(inter, c_out)
         if transform_grouped_feat_out:
-            self.feat_out_conv = nn.Linear(c_out, c_out)
+            self.feat_out_conv = Linear(c_out, c_out)
             if last_activation and attention_bn:
                 self.feat_out_norm = TailGroupNorm(min(32, c_out), c_out)
 

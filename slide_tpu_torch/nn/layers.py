@@ -2,8 +2,10 @@
 shared MLPs and the injection MLP (counterpart: `slide_tpu/nn/layers.py`).
 
 Channels-last: a 1x1 convolution over (B, M, K, C) is a `Linear` over the last
-axis, a plain fp32 matmul (no cuDNN, so no TF32).  Submodules carry the flax
-names so that `weights.load_flax_params` maps a flax tree onto them.
+axis, a plain fp32 matmul (no cuDNN, so no TF32).  `Linear` and `GroupNorm`
+compute in the activation dtype of `nn/precision.py` (fp32 unless it is set;
+the parameters stay fp32).  Submodules carry the flax names so that
+`weights.load_flax_params` maps a flax tree onto them.
 """
 
 from __future__ import annotations
@@ -13,7 +15,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from slide_tpu_torch.nn.precision import compute_dtype
 
 
 def swish(x: torch.Tensor) -> torch.Tensor:
@@ -42,10 +47,24 @@ def calc_t_emb(ts: torch.Tensor, t_dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
 
 
+class Linear(nn.Linear):
+    """`nn.Linear` computing in the activation dtype (`nn/precision.py`):
+    the input, weight and bias are cast at use, the parameters stay fp32
+    (flax's `Dense(dtype=...)`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = compute_dtype(x)
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
 class GroupNorm(nn.Module):
     """flax `GroupNorm`: statistics per sample and group over every other
     axis, in fp32 (float64 for float64 input: a float64 run is a reference),
-    with var = E[x^2] - E[x]^2 clipped at 0."""
+    with var = E[x^2] - E[x]^2 clipped at 0; the output is in the activation
+    dtype (`nn/precision.py`), the statistics are not."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -72,7 +91,8 @@ class GroupNorm(nn.Module):
         var = torch.maximum(mean2 - mean * mean, mean.new_zeros(()))
         mul = torch.rsqrt(var + self.eps).to(xg.dtype) * self.weight.reshape(g, c // g)
         y = (xg - mean.to(xg.dtype)) * mul + self.bias.reshape(g, c // g)
-        return y.reshape(x.shape)
+        dt = compute_dtype(x)
+        return y.reshape(x.shape) if dt is None else y.reshape(x.shape).to(dt)
 
 
 class TailGroupNorm(nn.Module):
@@ -111,7 +131,7 @@ class SharedMLP(nn.Module):
         self.act = get_activation(activation)
         n = len(self.dims) - 1
         for i in range(1, n + 1):
-            self.add_module(f"conv_{i}", nn.Linear(self.dims[i - 1], self.dims[i],
+            self.add_module(f"conv_{i}", Linear(self.dims[i - 1], self.dims[i],
                                                    bias=bias))
             if not bn:
                 continue
@@ -180,21 +200,21 @@ class InjectionMLP(nn.Module):
         self.include_second_condition = include_second_condition
         self.res_connect = res_connect
         if first_conv:
-            self.first_conv = nn.Linear(first_conv_in_channel, spec[0], bias=bias)
+            self.first_conv = Linear(first_conv_in_channel, spec[0], bias=bias)
         else:
             self.first_conv = None
         kw = dict(bn=bn, bn_first=bn_first, bias=bias, activation=activation)
         self.first_mlp = SharedMLP(spec[0:2], **kw)
         if include_t:
-            self.fc_t = nn.Linear(t_emb_dim, spec[1])
+            self.fc_t = Linear(t_emb_dim, spec[1])
         self.second_mlp = SharedMLP(spec[1:3], **kw)
         if include_condition:
-            self.fc_condition = nn.Linear(condition_dim, spec[2])
+            self.fc_condition = Linear(condition_dim, spec[2])
         self.rest_mlp = SharedMLP(spec[2:], **kw) if len(spec) > 3 else None
         if include_second_condition:
-            self.fc_second_condition = nn.Linear(second_condition_dim, spec[-1])
+            self.fc_second_condition = Linear(second_condition_dim, spec[-1])
         if res_connect and spec[0] != spec[-1]:
-            self.res_conv = nn.Linear(spec[0], spec[-1], bias=bias)
+            self.res_conv = Linear(spec[0], spec[-1], bias=bias)
 
     def forward(self, feature, t_emb=None, condition_emb=None,
                 second_condition_emb=None):
@@ -237,8 +257,8 @@ class TimestepEmbedder(nn.Module):
     def __init__(self, t_dim: int):
         super().__init__()
         self.t_dim = t_dim
-        self.fc_t1 = nn.Linear(t_dim, 4 * t_dim)
-        self.fc_t2 = nn.Linear(4 * t_dim, 4 * t_dim)
+        self.fc_t1 = Linear(t_dim, 4 * t_dim)
+        self.fc_t2 = Linear(4 * t_dim, 4 * t_dim)
 
     def forward(self, ts: torch.Tensor) -> torch.Tensor:
         # the sinusoid in the layers' dtype (float64 in a reference run)

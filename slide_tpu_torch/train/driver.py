@@ -11,9 +11,14 @@ refine+upsample net, on the scaffold they share.
     state, losses = train_upsampler(upsampler_config(), data_dir=root,
                                     max_iters=200)
 
-One position step: keypoints by FPS over the centroid-prepended cloud (K3),
-the eps loss at one random timestep per cloud, its gradient, Adam (optax's
-`adam`: eps outside the square root, bias correction), the EMA shadows.
+One position step: the task's target (`keypoint_generation`: keypoints by
+FPS over the centroid-prepended cloud, K3; `generation`: the cloud with its
+normals; `keypoint_conditional_generation`: the cloud with its normals,
+conditioned on its keypoints), the eps loss at one random timestep per
+cloud, or, where the config carries `standard_diffusion_config`, the x0
+engine's chamfer / MSE losses (`x0_training_loss`), its gradient, Adam
+(optax's `adam`: eps outside the square root, bias correction), the EMA
+shadows.
 One autoencoder step: noisy keypoints (K3), the round trip (the SA levels
 and the decoder's trims on K3) and its per-level chamfer losses.  One latent
 step: keypoints (K3), the frozen autoencoder's encode (K3 in its SA
@@ -21,9 +26,12 @@ levels), the latent eps loss.  One upsampler step: the mirrored cloud
 (optionally first corrupted by a frozen autoencoder's round trip), the SAP
 net (K3 in its SA levels), the split cloud's DPSR grid under autograd and
 the (tanh-)MSE against the dataset's grid.  With `fused=True` (the
-default) the DDPM denoisers are the fused one: K1 forward and K2 backward
-on the card, their plain versions on the CPU.  Entry points run on the card unless the caller
-passes `device="cpu"`.
+default) the DDPM denoisers of the unconditional keypoint and latent tasks
+are the fused one: K1 forward and K2 backward on the card, their plain
+versions on the CPU; the conditional tasks run the module.  Entry points
+run on the card unless the caller passes `device="cpu"`.
+`train_config["activation_dtype"]` ("bfloat16") runs the networks' layers
+in that dtype for the run (`nn/precision.py`).
 
 Resume is by default (`ckpt_iter: "max"`), checkpoints are the JAX
 package's (`train/checkpoint.py`), written every `loader_len *
@@ -39,13 +47,13 @@ EMA shadow as the JAX package's hooks do (`make_generation_eval_hook`,
 `make_ae_eval_hook`, `make_latent_eval_hook`, `make_sap_eval_hook`), into
 <experiment root>/eval_result[/model_ema_<rate>] with `_iter_<n>` tags.
 
-Left out (ROADMAP): the other position tasks (16b), the x0-engine step
-(13b), the device-resident corpus (15a's `device_data`) and
-`activation_dtype` (16b); a config or an argument asking for one raises.
+Left out (ROADMAP): the device-resident corpus (15a's `device_data`); a
+config asking for it raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -60,9 +68,11 @@ from torch import nn
 from slide_tpu_torch.data import get_dataloader
 from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
                                        diffusion_training_loss, latent_config_weights,
-                                       latent_denoise_and_reconstruct, latent_train_loss)
+                                       latent_denoise_and_reconstruct, latent_train_loss,
+                                       x0_denoise, x0_training_loss)
 from slide_tpu_torch.eval import (ae_quantitative_eval, ae_visual_eval, evaluate_per_rank,
                                   sap_grid_eval)
+from slide_tpu_torch.eval.generation import conditioned_net_fn
 from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder, decode_params
 from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn, make_fused_train_fn
 from slide_tpu_torch.ops import sample_keypoints
@@ -72,6 +82,7 @@ from slide_tpu_torch.train.checkpoint import (load_checkpoint, mirror_checkpoint
                                               restore_from_mirror, save_checkpoint)
 from slide_tpu_torch.train.ema import ema_init, ema_update
 from slide_tpu_torch.nn.layers import GroupNorm
+from slide_tpu_torch.nn.precision import activation_dtype_scope
 from slide_tpu_torch.weights import (flax_leaves, flax_order, flax_path, flax_to_torch_state,
                                      load_flax_params, module_to_flax)
 
@@ -181,12 +192,26 @@ def sample_train_keypoints(points: torch.Tensor, trainset_config: dict,
     return keypoint
 
 
+POSITION_TASKS = ("keypoint_generation", "generation", "keypoint_conditional_generation")
+
+
 def _prepare_x(task: str, trainset_config: dict, points: torch.Tensor,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-    """The diffusion target of a task; only `keypoint_generation` is ported."""
+               normals: Optional[torch.Tensor], generator: Optional[torch.Generator]):
+    """(diffusion target, condition) of a position task: the keypoints and
+    no condition (`keypoint_generation`); the cloud, with its normals when
+    `include_normals` (the default), and no condition (`generation`); that
+    cloud conditioned on its keypoints (`keypoint_conditional_generation`).
+    The keypoints' draws come first, from `generator`."""
+    if task not in POSITION_TASKS:
+        raise ValueError(f"task {task} not handled by this driver")
+    keypoint = None
+    if task in ("keypoint_generation", "keypoint_conditional_generation"):
+        keypoint = sample_train_keypoints(points, trainset_config, generator)
     if task == "keypoint_generation":
-        return sample_train_keypoints(points, trainset_config, generator)
-    raise NotImplementedError(f"task {task}: not ported yet (ROADMAP Queue A, item 16b)")
+        return keypoint, None
+    if trainset_config.get("include_normals", True):
+        points = torch.cat([points, normals], dim=-1)
+    return points, keypoint
 
 
 def maybe_fused_train_apply(pointnet_config: dict, n_points: int, net: nn.Module,
@@ -207,17 +232,48 @@ def make_train_step(net: nn.Module, sched, task: str, trainset_config: dict,
 
     def train_step(state: TrainState, batch: dict, generator: torch.Generator,
                    draws=None) -> torch.Tensor:
-        x = _prepare_x(task, trainset_config, batch["points"], generator)
-        label = batch["label"]
-
-        def net_fn(xt, ts):
-            if fused_apply is not None:
-                return fused_apply(xt, ts, label)
-            return net(xt, ts=ts, label=label)
-
+        x, net_fn = _step_inputs(net, task, trainset_config, batch, generator, fused_apply)
         ts, z = draws if draws is not None else (None, None)
         return _step_update(state, diffusion_training_loss(net_fn, x, sched, generator,
                                                            ts=ts, z=z))
+
+    return train_step
+
+
+def _step_inputs(net: nn.Module, task: str, trainset_config: dict, batch: dict,
+                 generator: torch.Generator, fused_apply: Optional[Callable]):
+    """(target, net_fn) of a position step: the fused apply where there is
+    one and no condition, else the module with the batch's condition."""
+    x, condition = _prepare_x(task, trainset_config, batch["points"], batch.get("normals"),
+                              generator)
+    label = batch["label"]
+
+    def net_fn(xt, ts):
+        if fused_apply is not None and condition is None:
+            return fused_apply(xt, ts, label)
+        return net(xt, ts=ts, label=label, condition=condition)
+
+    return x, net_fn
+
+
+def make_x0_train_step(net: nn.Module, x0_sched: X0Schedule, standard_diffusion_config: dict,
+                       task: str, trainset_config: dict,
+                       fused_apply: Optional[Callable] = None) -> Callable:
+    """The x0-engine (chamfer-loss) position step, taken where the config
+    carries `standard_diffusion_config`: `step(state, batch, generator,
+    draws=None) -> loss`, the batch mean of `x0_training_loss`'s
+    `training_loss` at the config's `loss_type` and `normal_loss_type`.
+    `draws` = (ts, z) replaces the loss's random draws."""
+    loss_type = standard_diffusion_config["loss_type"]
+    normal_loss_type = standard_diffusion_config.get("normal_loss_type", "cos")
+
+    def train_step(state: TrainState, batch: dict, generator: torch.Generator,
+                   draws=None) -> torch.Tensor:
+        x, net_fn = _step_inputs(net, task, trainset_config, batch, generator, fused_apply)
+        ts, z = draws if draws is not None else (None, None)
+        out = x0_training_loss(net_fn, x, x0_sched, generator, loss_type=loss_type,
+                               normal_loss_type=normal_loss_type, ts=ts, z=z)
+        return _step_update(state, out["training_loss"])
 
     return train_step
 
@@ -304,16 +360,27 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
     """The training loop: resume, one step per batch (`points`, `normals`,
     `label` and, where the dataset loads it, `psr` on the device), logging,
     checkpoints, and `eval_hook(net, ema shadows, iteration)` after each
-    checkpoint of the cadence.  Returns (state,
+    checkpoint of the cadence.  Where the config sets `activation_dtype`, the
+    steps and hooks run under it (`nn/precision.py`), and the dtype before
+    the run is restored when it ends.  Returns (state,
     [(iter, loss), ...]) with a loss every `iters_per_logging` iterations;
     a non-finite logged loss raises FloatingPointError."""
     train_config = config["train_config"]
-    trainset_config = _trainset_config(config, data_dir)
     if train_config.get("device_data", False):
         raise NotImplementedError("device_data: not ported yet (ROADMAP Queue A, item 15a)")
-    if "activation_dtype" in train_config:
-        raise NotImplementedError("activation_dtype: not ported yet (ROADMAP Queue A, "
-                                  "item 16b)")
+    scope = activation_dtype_scope(train_config["activation_dtype"]) \
+        if "activation_dtype" in train_config else contextlib.nullcontext()
+    with scope:
+        return _run_training(config, state, train_step, data_dir=data_dir,
+                             max_iters=max_iters, seed=seed, eval_hook=eval_hook,
+                             verbose=verbose)
+
+
+def _run_training(config: dict, state: TrainState, train_step: Callable, *,
+                  data_dir: Optional[str], max_iters: Optional[int], seed: int,
+                  eval_hook: Optional[Callable], verbose: bool):
+    train_config = config["train_config"]
+    trainset_config = _trainset_config(config, data_dir)
     dev = next(state.net.parameters()).device
     _, output_directory = experiment_dirs(config)
 
@@ -444,18 +511,36 @@ def _every_weight_set(config: dict, run_eval: Callable) -> Callable:
 def make_generation_eval_hook(config: dict, *, data_dir: Optional[str] = None,
                               seed: int = 0, fused: bool = True) -> Callable:
     """The position DDPM's hook: a test set sampled per checkpoint
-    (`evaluate_per_rank`; the fused denoiser where the config is in its
-    scope, K1 on the card) by the raw weights and by each EMA shadow."""
+    (`evaluate_per_rank`) by the raw weights and by each EMA shadow.  The
+    chain is the eps engine's, or the x0 engine's (`x0_denoise`) where the
+    config carries `standard_diffusion_config`; an unconditional chain runs
+    the fused denoiser where the config is in its scope (K1 on the card), a
+    conditional one encodes its condition once."""
     trainset_config = _trainset_config(config, data_dir)
     task = config["train_config"]["task"]
     pfd = 3 + config["pointnet_config"]["in_fea_dim"]
-    dc = config["diffusion_config"]
+    num_points = trainset_config["num_keypoints"] if task == "keypoint_generation" \
+        else trainset_config["npoints"]
+    dc = config.get("diffusion_config")
+    sdc = config.get("standard_diffusion_config")
+
+    def x0_sampler(net, x0_sched, fused_fn):
+        def sampler(noise_fn, label, condition):
+            net_fn = conditioned_net_fn(net, label, condition, fused_fn)
+            return x0_denoise(net_fn, (label.shape[0], num_points, pfd), x0_sched, noise_fn)
+        return sampler
 
     def run_eval(net, save_dir, ckpt_info):
         dev = next(net.parameters()).device
-        sched = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"], dev)
+        sched = None if dc is None else \
+            calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"], dev)
+        custom = None
+        if sdc is not None:
+            fused_fn = make_fused_net_fn(net.config, net, num_points) if fused else None
+            custom = x0_sampler(net, X0Schedule.from_config(sdc, dev), fused_fn)
         evaluate_per_rank(net, trainset_config, sched, save_dir, task, point_feature_dim=pfd,
-                          ckpt_info=ckpt_info, seed=seed, fused=fused, device=dev)
+                          ckpt_info=ckpt_info, seed=seed, fused=fused, device=dev,
+                          custom_sampler=custom)
 
     return _every_weight_set(config, run_eval)
 
@@ -555,18 +640,19 @@ def make_sap_eval_hook(config: dict, *, data_dir: Optional[str] = None,
 
 def build_position_ddpm(config: dict, *, seed: int = 0, device=None, fused: bool = True):
     """The network (its parameters drawn from `seed`), Adam, the EMA
-    shadows and the train step of the position DDPM: (TrainState, step)."""
+    shadows and the train step of the position DDPM: (TrainState, step).
+    The step is the x0 engine's where the config carries
+    `standard_diffusion_config`, else the eps engine's; only
+    `keypoint_generation` (no condition, a fixed number of points) runs the
+    fused denoiser."""
     train_config = config["train_config"]
     trainset_config = config["shapenet_psr_dataset_config"]
     task = train_config["task"]
-    if "standard_diffusion_config" in config:
-        raise NotImplementedError("the x0-engine train step: not ported yet "
-                                  "(ROADMAP Queue A, item 13b)")
+    if task not in POSITION_TASKS:
+        raise ValueError(f"task {task} not handled by this driver")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
-    dc = config["diffusion_config"]
-    sched = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"], dev)
     pointnet_config = config["pointnet_config"]
     net = ConditionalPointNet2(pointnet_config)
     init_params(net, torch.Generator().manual_seed(seed))
@@ -576,6 +662,12 @@ def build_position_ddpm(config: dict, *, seed: int = 0, device=None, fused: bool
     fused_apply = None
     if task == "keypoint_generation":
         fused_apply = maybe_fused_train_apply(pointnet_config, n_points, net, fused)
+    if "standard_diffusion_config" in config:
+        sdc = config["standard_diffusion_config"]
+        return state, make_x0_train_step(net, X0Schedule.from_config(sdc, dev), sdc, task,
+                                         trainset_config, fused_apply=fused_apply)
+    dc = config["diffusion_config"]
+    sched = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"], dev)
     return state, make_train_step(net, sched, task, trainset_config, fused_apply=fused_apply)
 
 

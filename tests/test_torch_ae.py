@@ -150,10 +150,14 @@ def test_point_net_encoder_matches_jax(level):
 
 
 def test_encoder_rejects_unported_options():
-    cfg = copy.deepcopy(autoencoder_config()["pointnet_config"]["encoder_config"])
-    cfg["use_position_encoding"] = True
-    with pytest.raises(NotImplementedError, match="use_position_encoding"):
-        tm.PointNetEncoder(cfg)
+    # positional encoding is ported (tests/test_torch_conditional.py);
+    # neighbour statistics and global attention raise, naming their item
+    for key, value in (("record_neighbor_stats", True),
+                       ("global_attention_setting", {"use_global_attention_module": True})):
+        cfg = copy.deepcopy(autoencoder_config()["pointnet_config"]["encoder_config"])
+        cfg[key] = value
+        with pytest.raises(NotImplementedError, match=f"item 18.*{key}"):
+            tm.PointNetEncoder(cfg)
 
 
 def _chamfer_inputs():

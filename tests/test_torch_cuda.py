@@ -1026,3 +1026,178 @@ def test_generation_eval_launches(cuda, tmp_path):
     for sub in ("", "model_ema_0.99900", "model_ema_0.99990"):
         with np.load(os.path.join(out, sub, "shapenet_psr_generated_data_16_pts_iter_1.npz")) as d:
             assert d["points"].shape == (6, 16, 3) and np.isfinite(d["points"]).all()
+
+
+# ---------------------------------------------------------------------------
+# The x0 engine's position step and the dual-tower conditional net on the
+# card.
+
+X0_MIXED = {"beta_schedule": "linear", "beta_start": 1e-4, "beta_end": 0.02,
+            "num_diffusion_timesteps": 1000, "data_clamp_range": 1.0,
+            "model_output_scale_factor": 1.0, "loss_type": "mixed_cd_t_epsilon_mse",
+            "t_trunction": 500, "normal_loss_type": "mse"}
+# the x0 loss's cotangent at the denoiser's output, card against float64
+# (the card's chamfer picks replayed), of its largest element
+X0_COTANGENT_RTOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_x0_step_gradient_card_matches_float64(cuda, monkeypatch):
+    # The kp preset's denoiser (weights from init_params) fused on the card
+    # (K1 forward, K2 backward) under the x0 loss at batch 8, half the clouds
+    # below the truncation (the chamfer term), against the module run in
+    # float64 on the CPU on the card's chamfer picks (a float64 pick may part
+    # from the card's only at a tie, 1e-6 of the clouds' squared scale): the
+    # loss, and the loss's cotangent at the denoiser's output; then K2 on the
+    # step's own core inputs and cotangent against its float64 reference, the
+    # relu ties resolved as K2 resolved them (K2_TOL).
+    import copy
+    from slide_tpu_torch.configs import keypoint_ddpm_config
+    from slide_tpu_torch.diffusion import X0Schedule, x0_training_loss
+    from slide_tpu_torch.models import ConditionalPointNet2
+    from slide_tpu_torch.models import fused_denoiser as fd
+    from slide_tpu_torch.ops import chamfer
+    from slide_tpu_torch.train.driver import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pc = keypoint_ddpm_config()["pointnet_config"]
+    net = init_params(ConditionalPointNet2(pc), torch.Generator().manual_seed(0))
+    net64 = copy.deepcopy(net).double()
+    gen = torch.Generator().manual_seed(1)
+    x = 0.4 * torch.randn((8, 16, 3), generator=gen)
+    z = torch.randn((8, 16, 3), generator=gen)
+    ts = torch.tensor([3, 60, 200, 450, 510, 700, 880, 999])
+    label = torch.tensor([0, 1, 2, 3, 4, 5, 6, 0])
+    real, recorded, ties = chamfer.pairwise_sqdist, {}, [0]
+
+    def recording(a, b):
+        d = real(a, b)
+        recorded.update(a=a.detach().cpu(), b=b.detach().cpu(), d=d.cpu())
+        return d
+
+    def replaying(a, b):
+        own, d = real(a, b), recorded["d"]
+        tol = 1e-6 * float(recorded["a"].square().sum(-1).max()
+                           + recorded["b"].square().sum(-1).max())
+        d64 = ((recorded["a"].double()[:, :, None] - recorded["b"].double()[:, None]) ** 2).sum(-1)
+        for dim in (2, 1):
+            mine, card = own.argmin(dim), d.argmin(dim)
+            for row in (mine != card).nonzero().tolist():
+                gap = d64.select(dim, int(mine[tuple(row)]))[tuple(row)] - \
+                    d64.select(dim, int(card[tuple(row)]))[tuple(row)]
+                assert abs(float(gap)) <= tol
+                ties[0] += 1
+        return d
+
+    outs = {}
+
+    def run(key, net_fn, dev, dtype):
+        sched = X0Schedule.from_config(X0_MIXED, dev)
+
+        def keep(xt, t):
+            out = net_fn(xt, t)
+            out.retain_grad()
+            outs[key] = (xt.detach(), out)
+            return out
+        loss = x0_training_loss(keep, x.to(dev, dtype), sched, loss_type=X0_MIXED["loss_type"],
+                                normal_loss_type="mse", ts=ts.to(dev), z=z.to(dev, dtype))
+        loss["training_loss"].backward()
+        return float(loss["training_loss"])
+
+    card = net.to(cuda)
+    apply = fd.make_fused_train_fn(pc, card, 16)
+    monkeypatch.setattr(chamfer, "pairwise_sqdist", recording)
+    before = dict(_build.launch_counts)
+    loss = run("card", lambda xt, t: apply(xt, t, label.to(cuda)), cuda, torch.float32)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["fused_denoiser"] == before.get("fused_denoiser", 0) + 1
+    assert _build.launch_counts["fused_denoiser_bwd"] == before.get("fused_denoiser_bwd", 0) + 1
+    monkeypatch.setattr(chamfer, "pairwise_sqdist", replaying)
+    loss64 = run("float64", lambda xt, t: net64(xt, ts=t, label=label), "cpu", torch.float64)
+    g, g64 = outs["card"][1].grad.cpu().double(), outs["float64"][1].grad
+    err = float((g - g64).abs().max())
+    print(f"x0 step: loss {loss} (float64 {loss64}), cotangent card vs float64 {err} of "
+          f"{float(g64.abs().max())}, chamfer ties {ties[0]}")
+    assert abs(loss - loss64) <= 1e-5 * abs(loss64)
+    assert err <= X0_COTANGENT_RTOL * float(g64.abs().max())
+    # K2 on the step's core: the input it saw and the cotangent it was given
+    pc_in = outs["card"][0].contiguous()
+    with torch.no_grad():
+        t4 = card.t_embedder(ts.to(cuda)).contiguous()
+        cls = card.class_emb(label.to(cuda)).contiguous()
+    cot = outs["card"][1].grad.contiguous()
+    got = fd.fused_backward_cuda(apply.packed, pc_in, t4, cls, cot)
+    _k2_close(apply, pc_in, t4, cls, cot, got, "x0 step")
+
+
+# the dual-tower net's forward on 2048-point clouds with normals, card and
+# CPU each against float64 on the card's kNN searches and FPS picks, of
+# max(1, max |float64|) (chip_smoke.py's COND_NET_TOL)
+COND_NET_TOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_conditional_net_card_matches_cpu(cuda, monkeypatch):
+    # keypoint_conditional_generation's net at the keypoint preset's widths
+    # (tests/conditional_layout.py), weights from init_params, conditioned
+    # on 16 keypoints: the main tower's and the condition tower's SA levels
+    # run K3 (four launches); the card's searches and picks go to the CPU run
+    # (held to the CPU's own first, ties counted) and to a float64 run
+    import copy
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from conditional_layout import conditional_task_config
+    from slide_tpu_torch.models import ConditionalPointNet2
+    from slide_tpu_torch.ops import sample_keypoints
+    from slide_tpu_torch.train.driver import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = conditional_task_config("keypoint_conditional_generation")
+    net = init_params(ConditionalPointNet2(cfg["pointnet_config"]),
+                      torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(2)
+    pts = torch.randn((2, 2048, 3), generator=gen) * torch.tensor([0.4, 0.15, 0.3])
+    nrm = torch.nn.functional.normalize(torch.randn((2, 2048, 3), generator=gen), dim=-1)
+    x = torch.cat([pts, nrm], dim=-1)
+    cond, _ = sample_keypoints(pts, 16)
+    ts, label = torch.tensor([3, 700]), torch.tensor([0, 5])
+    calls = _record_knn(monkeypatch)
+    picks = _record_fps(monkeypatch)
+    before = _build.launch_counts["fps"]
+    with torch.no_grad():
+        card = net.to(cuda)(x.to(cuda), ts=ts.to(cuda), label=label.to(cuda),
+                            condition=cond.to(cuda)).cpu().double()
+    assert _build.launch_counts["fps"] == before + 4
+    card_calls, card_picks = list(calls), list(picks)
+    replay = _replay_knn(monkeypatch, card_calls)
+    fps_it = iter(card_picks)
+
+    def cpu_fps(xyz, k, *args, **kwargs):
+        want = next(fps_it)
+        assert torch.equal(fps.furthest_point_sample(xyz, k, *args, **kwargs), want)
+        return want
+
+    monkeypatch.setattr("slide_tpu_torch.nn.modules.furthest_point_sample", cpu_fps)
+    net = net.cpu()
+    with torch.no_grad():
+        cpu = net(x, ts=ts, label=label, condition=cond).double()
+    assert next(replay, None) is None and next(fps_it, None) is None
+    knn = iter(card_calls)
+
+    def float64_knn(query, points, k):
+        c_query, _, c_sqd, c_idx = next(knn)
+        assert float((query - c_query.double()).abs().max()) <= 1e-4
+        return c_sqd.double(), c_idx
+
+    monkeypatch.setattr("slide_tpu_torch.nn.neighborhood.knn_points", float64_knn)
+    fps_it = iter(card_picks)
+    monkeypatch.setattr("slide_tpu_torch.nn.modules.furthest_point_sample",
+                        lambda xyz, k, *a, **kw: next(fps_it))
+    with torch.no_grad():
+        ref = copy.deepcopy(net).double()(x.double(), ts=ts, label=label,
+                                          condition=cond.double())
+    scale = max(1.0, float(ref.abs().max()))
+    errs = {"card": float((card - ref).abs().max()), "cpu": float((cpu - ref).abs().max()),
+            "card_vs_cpu": float((card - cpu).abs().max())}
+    print(f"conditional net: {errs} of {scale}; kNN ties {replay.ties}")
+    assert card.shape == (2, 2048, 6)
+    assert max(errs.values()) <= COND_NET_TOL * scale

@@ -360,9 +360,15 @@ def test_keypoint_generation_eval_matches_jax(tree, tmp_path):
     with pytest.raises(NotImplementedError, match="item 19"):
         t_gen.evaluate_per_rank(tnet, cfg, None, str(tmp_path), "keypoint_generation",
                                 device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="item 18"):
-        t_gen.evaluate_per_rank(tnet, cfg, None, str(tmp_path),
-                                "keypoint_conditional_generation", device="cpu")
+    # the condition-cloud route runs (held to JAX with the dual-tower net in
+    # tests/test_torch_conditional.py); this net takes no condition
+    cond = t_gen.evaluate_per_rank(
+        tnet, dict(cfg, npoints=32, num_samples_tested=4),
+        td.calc_diffusion_hyperparams(2, 1e-4, 0.02), str(tmp_path / "cond"),
+        "keypoint_conditional_generation", device="cpu")
+    with np.load(cond) as d:
+        assert d["points"].shape == (4, 32, 3) and np.isfinite(d["points"]).all()
+        assert d["keypoint"].shape == (4, 16, 3) and d["gt_points"].shape == (4, 32, 6)
 
 
 def test_generation_eval_options_match_jax(tmp_path):

@@ -19,6 +19,10 @@ AE = ("nn/pnet.py", "models/encoder.py", "ops/chamfer.py")
 # the mesh stages' modules, which copy JAX-package modules that import JAX
 SAP = ("sap/__init__.py", "sap/dpsr.py", "sap/mirror.py", "sap/refine.py",
        "sap/marching.py", "sap/mesh_sampling.py", "sap/marching_gpu.py")
+# the x0 engine's training, the conditional tasks and the activation dtype,
+# which copy JAX-package modules that import JAX
+CONDITIONAL = ("diffusion/x0.py", "models/denoiser.py", "eval/generation.py",
+               "nn/precision.py")
 
 
 def _imported(path: Path):
@@ -35,7 +39,7 @@ def _imported(path: Path):
 
 def test_the_port_has_files():
     assert len(FILES) > 15
-    for rel in TRAINING + AE + SAP:
+    for rel in TRAINING + AE + SAP + CONDITIONAL:
         assert REPO / "slide_tpu_torch" / rel in FILES
 
 

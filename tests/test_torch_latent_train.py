@@ -230,7 +230,9 @@ def test_train_latent_ddpm_checkpoints_and_resumes(tmp_path):
     # the JAX package would resume from it, EMA shadows included
     ckpt = jckpt.load_checkpoint(ckpt_dir)
     assert ckpt["iter"] == 3 and len(ckpt["ema_state_list"]) == 2
+    # activation_dtype is ported (tests/test_torch_conditional.py); the
+    # device-resident corpus still raises, naming its item
     bad = copy.deepcopy(cfg)
-    bad["train_config"]["activation_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="item 16b"):
+    bad["train_config"]["device_data"] = True
+    with pytest.raises(NotImplementedError, match="item 15a"):
         tdriver.train_latent_ddpm(bad, ae_params, data_dir=root, max_iters=4, device="cpu")

@@ -121,10 +121,15 @@ def test_denoiser_without_head_as_decoder_backbone():
 
 
 def test_denoiser_rejects_unported_options():
-    pc = copy.deepcopy(keypoint_ddpm_config()["pointnet_config"])
-    pc["include_local_feature"] = True
-    with pytest.raises(NotImplementedError):
-        tm.ConditionalPointNet2(pc)
+    # the condition towers, the global feature, positional encoding and the
+    # concatenated partial are ported (tests/test_torch_conditional.py);
+    # neighbour statistics and global attention raise, naming their item
+    for key, value in (("record_neighbor_stats", True),
+                       ("global_attention_setting", {"use_global_attention_module": True})):
+        pc = copy.deepcopy(keypoint_ddpm_config()["pointnet_config"])
+        pc[key] = value
+        with pytest.raises(NotImplementedError, match=f"item 18.*{key}"):
+            tm.ConditionalPointNet2(pc)
 
 
 @pytest.mark.parametrize("first_refine,center", [(False, False), (True, False),

@@ -10,6 +10,8 @@ import numpy as np
 import torch
 
 from slide_tpu_torch.weights import flax_leaves, load_flax_params, module_to_flax
+# the dual-tower net's layout, shared with the card tests and chip_smoke.py
+from conditional_layout import conditional_config  # noqa: F401
 
 
 def perturb(params, seed: int, scale: float = 0.1):
@@ -35,6 +37,17 @@ def to_np(x):
     return np.asarray(x)
 
 
+# XLA's CPU backend at LLVM -O0 without its expensive passes: a reference
+# compile takes about half the time; the operations and their rounding are
+# the same up to fused multiply-adds
+FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn, *args):
+    """`jax.jit(fn)(*args)`, compiled with FAST_COMPILE."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
+
+
 def run_pair(flax_mod, torch_mod, args, kwargs=None, *, seed=0):
     """Init the flax module on `args`, perturb its params, copy them into the
     torch module, run both.  Returns (jax outputs, torch outputs, params)."""
@@ -43,10 +56,9 @@ def run_pair(flax_mod, torch_mod, args, kwargs=None, *, seed=0):
     jkw = {k: to_jax(v) for k, v in kwargs.items()}
     # jitted: one compile of the whole module costs less than op-by-op
     # dispatch of a cold process
-    variables = jax.jit(lambda key: flax_mod.init(key, *jargs, **jkw))(
-        jax.random.key(seed))
+    variables = fast_jit(lambda key: flax_mod.init(key, *jargs, **jkw), jax.random.key(seed))
     params = perturb(variables["params"], seed)
-    jout = jax.jit(lambda p: flax_mod.apply({"params": p}, *jargs, **jkw))(params)
+    jout = fast_jit(lambda p: flax_mod.apply({"params": p}, *jargs, **jkw), params)
     load_flax_params(torch_mod, params)
     with torch.no_grad():
         tout = torch_mod(*[to_torch(a) for a in args],
@@ -302,3 +314,4 @@ def assert_one_adam_step(state, new_params, opt_state, rtol=5e-3, atol=1e-4, sur
         err = np.abs(g - np.asarray(w))
         assert float(err[a > sure].max(initial=0)) <= 1e-6
         assert float(err.max()) <= 2 * lr + 1e-6
+
