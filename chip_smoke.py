@@ -49,6 +49,11 @@ line each as soon as it ends:
            grid_interp's shift and scale) and the profiler's busiest kernels
            of a `sap` call, and DPSR on the card against DPSR on the CPU on
            the same points and normals (DPSR_ATOL)
+  native_marching  `mc_from_psr` on the counted pass's grids: the native
+           C++ pass (built with g++ at first use, timed apart) on a thread
+           pool over all of them, native and numpy one at a time on
+           MESH_SAMPLES of them, the same content (vertex and face order
+           free); host seconds a shape
   fastdpm  the same stages with FastDPM, S=50 steps per chain: 100 fused
            launches, the 13 FPS launches, the slice's checks
   net      the kp and latent denoisers on the card (the module and the fused
@@ -125,6 +130,26 @@ line each as soon as it ends:
            side against float64 (COND_NET_TOL); warm-up, counted run
            (exactly the FPS launches the config gives a step, no K1 or K2)
            and profiled run; every FPS shape against its plain version
+  train_device_data_kp, train_device_data_sap  the kp and SAP presets with
+           `device_data` (the corpus on the card, each batch assembled
+           there): the corpus's bytes and the seconds to read and copy it;
+           one batch assembled on the card against the CPU's on the same
+           draws (gathers equal, points and normals within DD_RTOL); warm-up,
+           counted and profiled runs with exactly the loader path's K1, K2
+           and FPS launches a step; every FPS / K1 shape against its plain
+           version
+  train_pvd, train_pointwise  PVCNN2 (`network_type: "pvd"`, PVD's widths)
+           on `generation` at 2048 points with normals, batch 16: its
+           forward on the card against the float64 CPU module on the
+           card's FPS, ball-query and 3-NN picks (PVD_TOL); PointwiseNet
+           (`"pointwise_net"`, its defaults) on
+           `keypoint_conditional_generation` without normals, batch 32;
+           warm-up, counted (exactly 4 and 1 FPS a step, no K1 / K2) and
+           profiled runs; every FPS shape against its plain version
+  item18_forward  the kp preset's net with global attention after every
+           level and the neighbour statistics on, radius neighbourhoods:
+           card vs CPU (NET_ATOL), the card's kNN picks replayed; every
+           module's statistics equal
   train_bf16  the autoencoder's step at the shipped preset and batch 32 in
            fp32 and under activation_dtype "bfloat16", same batch and draws:
            every FPS and kNN pick whose input equals the fp32 step's is the
@@ -178,19 +203,22 @@ from slide_tpu_torch.models import fused_denoiser as fd
 from slide_tpu_torch.ops import fps as fps_mod
 from slide_tpu_torch.configs import (autoencoder_config, keypoint_ddpm_config,
                                      latent_ddpm_config, upsampler_config)
-from slide_tpu_torch.data import get_dataloader, write_synthetic_shapenet_psr
+from slide_tpu_torch.data import (DeviceCorpus, draw_assembly, get_dataloader,
+                                  make_assemble_fn, write_synthetic_shapenet_psr)
 from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
                                        diffusion_training_loss, latent_config_weights,
                                        latent_train_loss, x0_training_loss)
 from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder
 from slide_tpu_torch.nn import modules as sa_modules
 from slide_tpu_torch.nn import neighborhood
+from slide_tpu_torch.nn.modules import collect_neighbor_stats
 from slide_tpu_torch.nn.precision import activation_dtype_scope
 from slide_tpu_torch.ops import chamfer, knn_points
 from slide_tpu_torch.pipeline import DEFAULT_CKPTS, build_stages, generate, with_fastdpm
 from slide_tpu_torch.sap import (DPSR, count_cells_and_faces, marching_tetrahedra_numpy,
-                                 mesh_to_host, mirror_and_concat,
+                                 mc_from_psr, mesh_to_host, mirror_and_concat,
                                  network_output_to_dpsr_grid, point_rasterize)
+from slide_tpu_torch.sap.marching import native_library
 from slide_tpu_torch.train import driver as train_driver
 from slide_tpu_torch.train.checkpoint import find_max_iter
 from slide_tpu_torch.weights import load_flax_params, load_inference_params, read_checkpoint
@@ -199,9 +227,11 @@ from slide_tpu_torch.weights import load_flax_params, load_inference_params, rea
 # (neither imports JAX)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
 from conditional_layout import conditional_task_config, fps_launches_per_step  # noqa: E402
-from mesh_compare import MESH_NORMAL_ATOL, MESH_VERT_ATOL, mesh_difference  # noqa: E402
+from mesh_compare import (MESH_NORMAL_ATOL, MESH_VERT_ATOL, mesh_difference,  # noqa: E402
+                          same_content)
+from pick_replay import pvcnn2_picks_replayed  # noqa: E402
 
-faulthandler.dump_traceback_later(900, exit=True)
+faulthandler.dump_traceback_later(1100, exit=True)
 
 BATCH = 16
 T_STEPS = 1000
@@ -222,8 +252,8 @@ K2_BATCHES = (32, 5)   # the kp preset's training batch, and an odd one
 K2_TOL = 1e-4
 TRAIN_BATCH = 32
 TRAIN_WARMUP = 5
-TRAIN_STEPS = 200
-PROFILE_STEPS = 30
+TRAIN_STEPS = 100
+PROFILE_STEPS = 15
 # one step's card gradient against the CPU module's, per element (the JAX
 # package's fused-vs-module tolerance), once K2's tie decisions are taken off
 GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
@@ -326,6 +356,38 @@ COND_NET_TOL = 1e-4
 # the autoencoder's step in bf16 (`activation_dtype`) against fp32, batch
 # 32: a step's picks compared, then warm-up and timed steps of each
 BF16_WARMUP, BF16_STEPS = 2, 5
+# the corpus on the device (`device_data`): the kp preset on the airplane
+# tree and the SAP preset on the tree of 128^3 grids, batch 32; the card's
+# assembly against the CPU's on the same draws: gathers equal, the points
+# and normals within DD_RTOL x max(1, max |cpu|) (a mean over the points, a
+# few products)
+DD_WARMUP, DD_STEPS = 3, 50
+DD_SAP_WARMUP, DD_SAP_STEPS = 2, 20
+# the step in steady state (`steady_steps`): steps a route, in turns
+DD_PAIR_STEPS, DD_SAP_PAIR_STEPS, BACKBONE_STEADY_STEPS = 20, 5, 5
+DD_RTOL = 1e-6
+# PVCNN2 (`network_type: "pvd"`, PVD's widths) on the task `generation` at
+# 2048 points with normals, batch 16: FPS at its four SA levels a step; its
+# forward on the card against the float64 CPU module on PVD_CHECK clouds,
+# the card's FPS, ball-query and 3-NN picks replayed (tests/pick_replay.py),
+# within PVD_TOL x max(1, max |float64|)
+PVD_BATCH = 16
+PVD_FPS = [(2048, 1024), (1024, 256), (256, 64), (64, 16)]
+PVD_WARMUP, PVD_STEPS, PVD_PROFILE_STEPS = 2, 5, 2
+PVD_CHECK = 2
+PVD_TOL = 1e-4
+# PointwiseNet (`network_type: "pointwise_net"`, its defaults) on the task
+# `keypoint_conditional_generation` without normals, batch 32: the keypoints'
+# FPS a step
+PW_WARMUP, PW_STEPS = 3, 20
+# item 18's options on the kp preset (module path): global attention after
+# both SA and FP levels, the neighbour statistics, ball queries of radius
+# ITEM18_RADIUS over the batch's keypoints; card vs CPU within NET_ATOL x
+# max(1, max |cpu|), the card's kNN picks replayed; the statistics equal
+ITEM18_RADIUS = [0.4, 0.8]
+# the host's marching tetrahedra on the counted pass's 128^3 grids: native
+# (threads) on all of them, native serial and numpy on MESH_SAMPLES
+MARCHING_THREADS = 8
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -1001,7 +1063,8 @@ def run_task(phase: str, train_fn, cfg: dict, warmup: int, steps: int, per_step:
     values = [l for _, l in losses]
     finite = bool(np.isfinite(values).all()) and len(values) > 0
     ms_per_step = 1e3 * seconds / steps
-    log(phase, batch=TRAIN_BATCH, steps=steps, resumed_from=saved, seconds=seconds,
+    log(phase, batch=cfg["shapenet_psr_dataset_config"]["batch_size"], steps=steps,
+        resumed_from=saved, seconds=seconds,
         ms_per_step=ms_per_step, first_loss=losses[0] if losses else None,
         last_loss=losses[-1] if losses else None, warmup_first_loss=warm[0] if warm else None,
         finite=finite, launches=launches, launches_per_step_expected=per_step,
@@ -1640,6 +1703,286 @@ def phase_train_bf16(dev, root: str, tmp: str) -> dict:
     return runs
 
 
+def _endless(batches, batch_size: int):
+    """Full batches of `batches(batch_size)`, epoch after epoch."""
+    while True:
+        for batch in batches(batch_size):
+            if batch["label"].shape[0] == batch_size:
+                yield batch
+
+
+def steady_steps(phase: str, build, cfg: dict, routes, steps: int, profile_steps: int,
+                 dev) -> dict:
+    """A task's step in steady state, without the entry point's set-up (the
+    net's init, the checkpoint, the corpus): one state and step built once,
+    each route's batches (the loader's, copied to the card, or the corpus's,
+    assembled on the card) fed to `steps` steps after two warm-up steps and
+    timed between two synchronisations, the routes in turns (A B B A); then
+    `profile_steps` more steps of each route under the profiler: busy ms and
+    idle share a step."""
+    from torch.profiler import ProfilerActivity, profile
+    state, step = build(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    trainset = cfg["shapenet_psr_dataset_config"]
+    loader = get_dataloader(trainset, seed=0)
+    make = {"loader": lambda: train_driver._loader_batches(loader, dev),
+            "device_data": lambda: train_driver._device_batches(loader.dataset, trainset, dev,
+                                                                0, False)}
+    feeds = {r: _endless(make[r](), trainset["batch_size"]) for r in routes}
+    order = list(routes) + list(reversed(routes)) if len(routes) > 1 else list(routes)
+    runs = {r: [] for r in routes}
+    for route in order:
+        for _ in range(2):
+            step(state, next(feeds[route]), gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(state, next(feeds[route]), gen)
+        torch.cuda.synchronize()
+        runs[route].append(1e3 * (time.perf_counter() - t0) / steps)
+    out = {}
+    for route in routes:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(profile_steps):
+                step(state, next(feeds[route]), gen)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum(_device_us(e) for e in events) / 1e3 / profile_steps
+        launches = sum(e.count for e in events if _device_us(e) > 0) / profile_steps
+        ms = float(np.mean(runs[route]))
+        out[route] = {"ms_per_step": runs[route], "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / ms, "kernel_launches_per_step": launches}
+    log(f"{phase}_steady", batch=trainset["batch_size"], steps=steps,
+        profile_steps=profile_steps, order=order, **out)
+    del state, feeds
+    return out
+
+
+def check_assembly(phase: str, cfg: dict, dev) -> dict:
+    """The corpus of the config's train split (read once on the host, then
+    copied to the card) and one batch assembled on the card against the
+    same batch assembled on the CPU from the same draws."""
+    trainset = cfg["shapenet_psr_dataset_config"]
+    dataset = get_dataloader(trainset, seed=0).dataset
+    t0 = time.perf_counter()
+    corpus = DeviceCorpus.from_dataset(dataset)
+    host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card = corpus.to(dev)
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    assemble = make_assemble_fn(trainset)
+    idx = torch.randperm(len(corpus), generator=torch.Generator().manual_seed(0))[:TRAIN_BATCH]
+    idx = idx.to(torch.int32)
+    draws = draw_assembly(trainset, TRAIN_BATCH, corpus.points.shape[1],
+                          torch.Generator().manual_seed(0))
+    got = assemble(card, idx.to(dev), draws={k: v.to(dev) for k, v in draws.items()})
+    want = assemble(corpus, idx, draws=draws)
+    equal = {k: torch.equal(got[k].cpu(), want[k]) for k in ("label", "psr") if k in want}
+    errs = {k: float((got[k].cpu() - want[k]).abs().max()) / max(1.0, float(want[k].abs().max()))
+            for k in ("points", "normals")}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx_dev = idx.to(dev)
+    ms = cuda_ms(lambda: assemble(card, idx_dev, gen), 10)
+    log(f"{phase}_assemble", entries=len(corpus), models=int(corpus.points.shape[0]),
+        points_per_model=int(corpus.points.shape[1]), corpus_bytes=corpus.nbytes,
+        host_read_seconds=host_s, copy_seconds=copy_s, gathers_equal=equal,
+        rel_err=errs, rtol=DD_RTOL, assemble_ms=ms)
+    del card
+    if not all(equal.values()) or max(errs.values()) > DD_RTOL:
+        raise AssertionError(f"{phase}: the card's assembly differs from the CPU's: "
+                             f"{equal}, {errs}")
+    return {"corpus_bytes": corpus.nbytes, "assemble_ms": ms}
+
+
+def phase_train_device_data(dev, root: str, sap_root: str, tmp: str) -> dict:
+    """The kp and SAP presets with `device_data` through their entry points:
+    the assembly card vs CPU, then warm-up, counted run (exactly the loader
+    path's launches a step) and profiled run, every FPS / K1 shape held
+    against its plain version."""
+    out = {}
+    runs = (("kp", keypoint_ddpm_config("airplane", batch_size=TRAIN_BATCH), root,
+             train_driver.train_position_ddpm, train_driver.build_position_ddpm, DD_WARMUP,
+             DD_STEPS, DD_PAIR_STEPS, {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1}),
+            ("sap", upsampler_config(batch_size=TRAIN_BATCH), sap_root,
+             train_driver.train_upsampler, train_driver.build_upsampler_training,
+             DD_SAP_WARMUP, DD_SAP_STEPS, DD_SAP_PAIR_STEPS,
+             {"fps": len(SAP_FPS), "fused_denoiser": 0, "fused_denoiser_bwd": 0}))
+    for name, config, tree, train_fn, build_fn, warmup, steps, pair_steps, per_step in runs:
+        phase = f"train_device_data_{name}"
+        cfg = _task_config(config, tree, os.path.join(tmp, f"exp_dd_{name}"))
+        if name == "sap":
+            cfg["shapenet_psr_dataset_config"]["categories"] = list(SAP_CATEGORIES)
+        cfg["train_config"]["device_data"] = True
+        extra = check_assembly(phase, cfg, dev)
+        inputs = KernelInputs()
+        with inputs.recording():
+            res = run_task(phase, train_fn, cfg, warmup, steps, per_step, TASK_PROFILE_STEPS)
+        inputs.check(phase)
+        steady = steady_steps(phase, build_fn, cfg, ("loader", "device_data"), pair_steps,
+                              TASK_PROFILE_STEPS, dev)
+        out[f"dd_{name}"] = {**res, **extra, "steady": steady}
+    return out
+
+
+def check_pvd_forward(cfg: dict, batch: dict, dev) -> dict:
+    """PVCNN2 (its weights drawn from seed 0) on the card and in float64 on
+    the CPU on the batch's first PVD_CHECK clouds, the card's picks
+    replayed into the float64 run."""
+    n = PVD_CHECK
+    net = train_driver.init_params(train_driver.build_network(cfg["pointnet_config"]),
+                                   torch.Generator().manual_seed(0)).to(dev).eval()
+    x = torch.cat([batch["points"][:n], batch["normals"][:n]], dim=-1)
+    ts = torch.tensor([3, 700][:n], device=dev)
+    before = _build.launch_counts["fps"]
+    card, ref, picks = pvcnn2_picks_replayed(net, (x, None, ts), (x.cpu().double(), None,
+                                                                  ts.cpu()),
+                                             "cpu", torch.float64)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((card - ref).abs().max())
+    log("train_pvd_forward", clouds=n, shape=list(card.shape), picks_replayed=picks,
+        fps_launches=_build.launch_counts["fps"] - before, max_abs=scale,
+        card_vs_float64=err, tol=PVD_TOL * scale, finite=bool(torch.isfinite(card).all()))
+    if not err <= PVD_TOL * scale:
+        raise AssertionError(f"train_pvd: the card's forward lies {err} from float64 "
+                             f"(tol {PVD_TOL * scale})")
+    return {"card_vs_float64": err, "max_abs": scale}
+
+
+def _backbone_config(network_type: str, root: str, tmp: str, batch: int) -> dict:
+    """The kp preset's data and schedule with the `network_type` backbone at
+    its defaults: PVCNN2 on `generation` (2048 points with normals, 6
+    channels in and out), PointwiseNet on `keypoint_conditional_generation`
+    (the clouds without normals, 3 channels)."""
+    cfg = _task_config(keypoint_ddpm_config("airplane", batch_size=batch), root,
+                       os.path.join(tmp, f"exp_{network_type}"))
+    if network_type == "pvd":
+        cfg["pointnet_config"] = {"network_type": "pvd", "in_fea_dim": 3,
+                                  "model_name": "pvd_airplane",
+                                  "network_args": {"out_dim": 6}}
+        cfg["train_config"]["task"] = "generation"
+    else:
+        cfg["pointnet_config"] = {"network_type": "pointwise_net", "in_fea_dim": 0,
+                                  "model_name": "pointwise_airplane", "network_args": {}}
+        cfg["train_config"]["task"] = "keypoint_conditional_generation"
+        cfg["shapenet_psr_dataset_config"]["include_normals"] = False
+    return cfg
+
+
+def phase_train_backbones(dev, root: str, tmp: str) -> dict:
+    """PVCNN2 and PointwiseNet through `train_position_ddpm` (the module
+    path): PVCNN2's forward card vs float64, then each one's warm-up,
+    counted run (exactly its FPS launches a step, no K1 or K2) and profiled
+    run, every FPS shape held against its plain version."""
+    out = {}
+    for name, network_type, batch, warmup, steps, profile, fps in (
+            ("pvd", "pvd", PVD_BATCH, PVD_WARMUP, PVD_STEPS, PVD_PROFILE_STEPS, len(PVD_FPS)),
+            ("pointwise", "pointwise_net", TRAIN_BATCH, PW_WARMUP, PW_STEPS,
+             TASK_PROFILE_STEPS, 1)):
+        cfg = _backbone_config(network_type, root, tmp, batch)
+        extra = check_pvd_forward(cfg, _first_batch(cfg, dev), dev) if name == "pvd" else {}
+        inputs = KernelInputs()
+        with inputs.recording():
+            res = run_task(f"train_{name}", train_driver.train_position_ddpm, cfg, warmup,
+                           steps, {"fps": fps, "fused_denoiser": 0, "fused_denoiser_bwd": 0},
+                           profile)
+        inputs.check(f"train_{name}")
+        steady = steady_steps(f"train_{name}", train_driver.build_position_ddpm, cfg,
+                              ("loader",), BACKBONE_STEADY_STEPS, profile, dev)
+        out[name] = {**res, **extra, "steady": steady}
+    return out
+
+
+def phase_item18_forward(dev, root: str) -> dict:
+    """The kp preset's net (module path) with global attention after every
+    level and the neighbour statistics on, radius neighbourhoods, on the
+    first batch's keypoints: card vs CPU, the card's kNN picks (the KnnFP
+    levels') replayed; each module's statistics equal."""
+    import copy
+    cfg = keypoint_ddpm_config("airplane", batch_size=TRAIN_BATCH)
+    cfg["shapenet_psr_dataset_config"]["data_dir"] = root
+    pc = copy.deepcopy(cfg["pointnet_config"])
+    levels = len(pc["architecture"]["npoint"])
+    pc["record_neighbor_stats"] = True
+    pc["global_attention_setting"] = {"use_global_attention_module": True,
+                                      "attention_bn": True, "last_activation": True,
+                                      "global_attention_layer_index": list(range(levels))}
+    pc["architecture"].update(neighbor_definition="radius", radius=ITEM18_RADIUS[:levels])
+    batch = _first_batch(cfg, dev)
+    kp = train_driver.sample_train_keypoints(batch["points"], cfg["shapenet_psr_dataset_config"])
+    ts = torch.randint(0, 1000, (TRAIN_BATCH,), generator=torch.Generator().manual_seed(2))
+    label = batch["label"]
+    net = train_driver.init_params(ConditionalPointNet2(pc),
+                                   torch.Generator().manual_seed(0)).eval()
+    cpu_net = copy.deepcopy(net)
+    net = net.to(dev)
+    real_knn = neighborhood.knn_points
+    try:
+        knn_calls = _record_knn()
+        with torch.no_grad():
+            card = net(kp, ts=ts.to(dev), label=label).cpu()
+        torch.cuda.synchronize()
+        neighborhood.knn_points = real_knn
+        seen = _replay_knn(knn_calls, TRAIN_BATCH)
+        with torch.no_grad():
+            cpu = cpu_net(kp.cpu(), ts=ts, label=label.cpu())
+    finally:
+        neighborhood.knn_points = real_knn
+    card_stats = {k: {s: t.cpu() for s, t in v.items()}
+                  for k, v in collect_neighbor_stats(net).items()}
+    cpu_stats = collect_neighbor_stats(cpu_net)
+    equal = sorted(card_stats) == sorted(cpu_stats) and all(
+        torch.equal(card_stats[k][s], cpu_stats[k][s]) for k in cpu_stats for s in cpu_stats[k])
+    gatt = sum(type(m).__name__ == "GlobalAttention" for m in net.modules())
+    scale = max(1.0, float(cpu.abs().max()))
+    err = float((card - cpu).abs().max())
+    log("item18_forward", keypoints=list(kp.shape), global_attention_modules=gatt,
+        knn_calls=seen["calls"], knn_ties=seen["ties"], max_abs=scale, card_vs_cpu=err,
+        tol=NET_ATOL * scale, stats_equal=equal,
+        stats={k: {s: t.tolist() for s, t in v.items()} for k, v in cpu_stats.items()})
+    counts = [v["min_mean_max"] for v in cpu_stats.values()]
+    if not equal or err > NET_ATOL * scale or gatt != 2 * levels or not counts:
+        raise AssertionError(f"item18_forward: stats equal {equal}, card vs CPU {err}, "
+                             f"{gatt} global attention modules")
+    return {"card_vs_cpu": err}
+
+
+def phase_native_marching(out) -> dict:
+    """`mc_from_psr` on the counted pass's 128^3 grids: the native pass on a
+    thread pool over all of them, then native and numpy one grid at a time
+    on MESH_SAMPLES of them, whose content must be equal; host seconds a
+    shape.  The native pass is built (or loaded) first, so that no time a
+    shape holds its build."""
+    grids = out["grid"].float().cpu().numpy()
+    n = MESH_SAMPLES
+    t0 = time.perf_counter()
+    native_library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    threaded = mc_from_psr(grids, num_threads=MARCHING_THREADS)
+    threaded_s = (time.perf_counter() - t0) / len(grids)
+    t0 = time.perf_counter()
+    native = mc_from_psr(grids[:n])
+    native_s = (time.perf_counter() - t0) / n
+    t0 = time.perf_counter()
+    numpy_route = mc_from_psr(grids[:n], native=False)
+    numpy_s = (time.perf_counter() - t0) / n
+    same = [same_content(tuple(r[i] for r in native), tuple(r[i] for r in numpy_route))
+            for i in range(n)]
+    same_threaded = all(np.array_equal(a, b) for r, t in zip(native, threaded)
+                        for a, b in zip(r, t[:n]))
+    faces = [len(f) for f in threaded[1]]
+    log("native_marching", grids=len(grids), res=int(grids.shape[-1]),
+        threads=MARCHING_THREADS, build_or_load_seconds=build_s,
+        threaded_seconds_per_shape=threaded_s,
+        native_seconds_per_shape=native_s, numpy_seconds_per_shape=numpy_s,
+        same_content=same, threaded_equals_serial=same_threaded, faces=faces)
+    if not (all(same) and same_threaded and min(faces) > 0):
+        raise AssertionError(f"native_marching: content equal {same}, threaded equal "
+                             f"{same_threaded}, faces {faces}")
+    return {"native_s": native_s, "numpy_s": numpy_s, "threaded_s": threaded_s}
+
+
 def _committed_weights(net_fn, path: str, dev):
     """The committed checkpoint's net on the card (raw weights) and its EMA
     shadows as the training state holds them (lists of tensors parallel to
@@ -1946,6 +2289,7 @@ def main():
     log("slice_warmup", seconds=warm["seconds"])
     out, launches = run_slice("slice", stages, 0, want_fused=2 * T_STEPS)
     phase_mesh(stages, out, dev)
+    phase_native_marching(out)
     del out
     run_slice("fastdpm", with_fastdpm(stages, FASTDPM_STEPS), 2,
               want_fused=2 * FASTDPM_STEPS)
@@ -1967,12 +2311,15 @@ def main():
         write_synthetic_shapenet_psr(root, categories=("02691156",), models_per_split=16,
                                      num_points=3000, shape_variety=True, with_psr=False)
         log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
+        sap_root = os.path.join(tmp, "shapenet_psr_sap")
         tasks = {"kp": phase_train(dev, root, tmp), "ae": phase_train_ae(dev, root, tmp),
                  "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp),
-                 "x0": phase_train_x0(dev, root, tmp), **phase_train_cond(dev, root, tmp)}
+                 "x0": phase_train_x0(dev, root, tmp), **phase_train_cond(dev, root, tmp),
+                 **phase_train_device_data(dev, root, sap_root, tmp),
+                 **phase_train_backbones(dev, root, tmp)}
+        phase_item18_forward(dev, root)
         phase_train_bf16(dev, root, tmp)
-        evals, eval_k1_err = phase_eval(dev, root, os.path.join(tmp, "shapenet_psr_sap"), tmp,
-                                        tasks["x0"])
+        evals, eval_k1_err = phase_eval(dev, root, sap_root, tmp, tasks["x0"])
 
     def per_task(name):
         return {task: res["launches"].get(name, 0) for task, res in tasks.items()}
@@ -1990,6 +2337,8 @@ def main():
     ms, plain_ms, (bound_ms, bound_by) = fps_sum(PASS_FPS, BATCH)
     enc_ms, enc_plain_ms, (enc_bound_ms, enc_bound_by) = fps_sum(ENCODER_FPS, TRAIN_BATCH)
     sap_train = fps_sum(SAP_FPS, TRAIN_BATCH)
+    # PVCNN2's four SA levels at its batch of 16 (the decode's shapes)
+    pvd_fps = fps_sum(PVD_FPS, PVD_BATCH)
     # K1: per launch of the main path, which runs the kp and latent nets
     # 1000 times each at batch 16: the mean of the two
     nets = [k1[(name, BATCH)] for name in ("kp", "lat")]
@@ -2011,7 +2360,9 @@ def main():
         "encoder_ms": enc_ms, "encoder_plain_ms": enc_plain_ms,
         "encoder_bound_ms": enc_bound_ms, "encoder_bound_by": enc_bound_by,
         "sap_train_ms": sap_train[0], "sap_train_plain_ms": sap_train[1],
-        "sap_train_bound_ms": sap_train[2][0], "sap_train_bound_by": sap_train[2][1]}, {
+        "sap_train_bound_ms": sap_train[2][0], "sap_train_bound_by": sap_train[2][1],
+        "pvd_ms": pvd_fps[0], "pvd_plain_ms": pvd_fps[1], "pvd_bound_ms": pvd_fps[2][0],
+        "pvd_bound_by": pvd_fps[2][1]}, {
         "name": "fused_denoiser", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",

@@ -15,6 +15,14 @@ The library is built at first use into `build/` at the repository root,
 named by a hash of the sources, so an edited source is rebuilt and an
 unchanged one is loaded as it is.
 
+The host's C++ (`native/*.cpp`, the marching tetrahedra) is built the same
+way with `g++` at first use (`load_host_library`), into the same directory:
+
+    g++ -O3 -shared -fPIC -std=c++17 -fopenmp -o \
+        build/slide_tpu_torch/lib<name>_<hash>.so slide_tpu_torch/native/<name>.cpp
+
+A failed build raises with the compiler's stderr.
+
 `launch_counts` counts kernel launches by name: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that the main
 path went through the kernels.
@@ -29,15 +37,21 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
+import threading
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parent / "native"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-fopenmp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "slide_tpu_torch"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 launch_counts: collections.Counter = collections.Counter()
+# serialises the host libraries' first build and load across threads
+_host_lock = threading.Lock()
 
 
 def sources() -> list[Path]:
@@ -149,3 +163,39 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.slide_error_string(code).decode()
         raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def host_library_path(name: str) -> Path:
+    src = NATIVE / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def load_host_library(name: str) -> ctypes.CDLL:
+    """`native/<name>.cpp` built with g++ (at first use of this source) and
+    loaded.  Raises with the compiler's stderr when the build fails.  Threads
+    that ask at once wait for one build; processes each build into a file of
+    their own and move it into place, so none loads a half-written one."""
+    with _host_lock:
+        path = host_library_path(name)
+        if not path.exists():
+            _build_host_library(name, path)
+        return ctypes.CDLL(str(path))
+
+
+def _build_host_library(name: str, path: Path) -> None:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host's C++ cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f"{path.stem}.", suffix=".tmp.so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, str(NATIVE / f"{name}.cpp")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"g++ failed with code {proc.returncode} building "
+                           f"native/{name}.cpp:\n{proc.stderr}")
+    os.replace(tmp, path)

@@ -18,8 +18,10 @@ encodes its condition once).  `concate_partial_with_noisy_input` is the
 single-tower variant: the condition cloud (tagged 1) is appended to the
 input (tagged 0).  Config keys and channel arithmetic are the JAX
 package's; the SA tower's builder, `build_sa_stack`, is shared with the
-autoencoder's `PointNetEncoder`.  Neighbour statistics and global attention
-are not ported (ROADMAP item 18): such a config raises.
+autoencoder's `PointNetEncoder`.  `global_attention_setting` adds a
+`GlobalAttention` after the main towers' levels it lists, and
+`record_neighbor_stats` makes every SA level and feature map keep its
+neighbour-count statistics (`nn.modules.collect_neighbor_stats`).
 """
 
 from __future__ import annotations
@@ -67,14 +69,13 @@ def upsample_factor_multiplier(hp: Mapping) -> int:
     return int(puf)
 
 
-def reject_unported(hp: Mapping) -> None:
-    """Raise for the options of `hp` that the port does not build (ROADMAP
-    item 18)."""
-    on = ["record_neighbor_stats"] if hp.get("record_neighbor_stats", False) else []
-    if (hp.get("global_attention_setting") or {}).get("use_global_attention_module", False):
-        on.append("global_attention_setting")
-    if on:
-        raise NotImplementedError(f"not ported yet (ROADMAP Queue A, item 18): {on}")
+def _global_attention_at(setting: Optional[Mapping], i: int) -> Optional[Mapping]:
+    """The global attention setting of level i, where its layer index lists
+    it (else None)."""
+    if setting and setting.get("use_global_attention_module", False) \
+            and i in setting["global_attention_layer_index"]:
+        return setting
+    return None
 
 
 def _injection(class_dim, global_dim) -> dict:
@@ -90,7 +91,8 @@ def _injection(class_dim, global_dim) -> dict:
 def build_sa_stack(owner: nn.Module, hp: Mapping, in_fea_dim: int, *,
                    t_emb_dim: Optional[int] = None, class_dim: Optional[int] = None,
                    global_dim: Optional[int] = None, arch: Optional[Mapping] = None,
-                   name: str = "sa_modules", additional_fea_dim=None) -> list:
+                   name: str = "sa_modules", additional_fea_dim=None,
+                   global_attention_setting: Optional[Mapping] = None) -> list:
     """The SA levels of `arch` (default `hp["architecture"]`), registered on
     `owner` as `<name>_<i>` (counterpart:
     `slide_tpu/models/denoiser.py::_build_sa_stack`).  `t_emb_dim` /
@@ -98,7 +100,8 @@ def build_sa_stack(owner: nn.Module, hp: Mapping, in_fea_dim: int, *,
     when not injected.  With a global feature (`global_dim`) it is the
     condition and the class embedding the second condition.
     `additional_fea_dim[i]` widens level i's input (the mapped condition
-    features)."""
+    features).  `global_attention_setting` puts a global attention after
+    the levels it lists."""
     arch = hp["architecture"] if arch is None else arch
     neighbor_def = _as_list(arch["neighbor_definition"], len(arch["radius"]))
     fd = arch["feature_dim"]
@@ -118,8 +121,10 @@ def build_sa_stack(owner: nn.Module, hp: Mapping, in_fea_dim: int, *,
                       bn_first=hp["bn_first"], bias=hp["bias"], first_conv=first_conv,
                       first_conv_in_channel=in_fea_dim, res_connect=hp["res_connect"],
                       activation=hp.get("activation", "relu"),
-                      attention_setting=hp.get("attention_setting"), t_emb_dim=t_emb_dim,
-                      **_injection(class_dim, global_dim))
+                      attention_setting=hp.get("attention_setting"),
+                      global_attention_setting=_global_attention_at(global_attention_setting, i),
+                      record_neighbor_stats=hp.get("record_neighbor_stats", False),
+                      t_emb_dim=t_emb_dim, **_injection(class_dim, global_dim))
         owner.add_module(f"{name}_{i}", sa)
         mods.append(sa)
     return mods
@@ -128,7 +133,8 @@ def build_sa_stack(owner: nn.Module, hp: Mapping, in_fea_dim: int, *,
 def _build_fp_stack(owner: nn.Module, hp: Mapping, arch: Mapping, in_fea_dim: int, *,
                     name: str, t_emb_dim: Optional[int] = None,
                     class_dim: Optional[int] = None, global_dim: Optional[int] = None,
-                    additional_fea_dim=None) -> list:
+                    additional_fea_dim=None,
+                    global_attention_setting: Optional[Mapping] = None) -> list:
     """The FP levels of `arch`, registered on `owner` as `<name>_<i>`
     (counterpart: `slide_tpu/models/denoiser.py::_build_fp_stack`)."""
     fd, dd = arch["feature_dim"], arch["decoder_feature_dim"]
@@ -151,7 +157,9 @@ def _build_fp_stack(owner: nn.Module, hp: Mapping, arch: Mapping, in_fea_dim: in
         if arch.get("use_knn_FP", False):
             fp = KnnFPModule([dd[i + 1] + extra] + [dd[i]] * depth,
                              [dd[i] + skip_dim] + [dd[i]] * depth, k=arch.get("K", 3),
-                             attention_setting=hp.get("attention_setting"), **common)
+                             attention_setting=hp.get("attention_setting"),
+                             global_attention_setting=_global_attention_at(
+                                 global_attention_setting, i), **common)
         else:
             fp = FPModule([dd[i + 1] + skip_dim + extra] + [dd[i]] * depth, **common)
         owner.add_module(f"{name}_{i}", fp)
@@ -165,7 +173,6 @@ class ConditionalPointNet2(nn.Module):
     def __init__(self, config: Mapping[str, Any]):
         super().__init__()
         hp = config
-        reject_unported(hp)
         self.config = config
         self.include_t = hp["include_t"]
         self.include_class_condition = hp.get("include_class_condition", False)
@@ -232,7 +239,8 @@ class ConditionalPointNet2(nn.Module):
                           bn=self.bn, bn_first=hp["bn_first"], bias=hp["bias"],
                           res_connect=hp["res_connect"],
                           activation=hp.get("activation", "relu"),
-                          attention_setting=fm_attention)
+                          attention_setting=fm_attention,
+                          record_neighbor_stats=hp.get("record_neighbor_stats", False))
             enc_map_dim = mapper["encoder_feature_map_dim"]
             self.encoder_feature_map = []
             for i in range(len(enc_map_dim)):
@@ -262,13 +270,16 @@ class ConditionalPointNet2(nn.Module):
                 self.decoder_feature_map.append(fm)
 
         main_in = in_fea_dim + (enc_map_dim[0] if self.include_local_feature else 0)
+        gatt = hp.get("global_attention_setting")
         self.sa_modules = build_sa_stack(self, hp, main_in, t_emb_dim=t_emb_dim,
                                          class_dim=class_dim, global_dim=global_dim,
-                                         additional_fea_dim=enc_map_dim)
+                                         additional_fea_dim=enc_map_dim,
+                                         global_attention_setting=gatt)
         self.fp_modules = _build_fp_stack(
             self, hp, arch, in_fea_dim, name="fp_modules", t_emb_dim=t_emb_dim,
             class_dim=class_dim, global_dim=global_dim,
-            additional_fea_dim=dec_map_dim[1:] if self.include_local_feature else None)
+            additional_fea_dim=dec_map_dim[1:] if self.include_local_feature else None,
+            global_attention_setting=gatt)
 
         out_dim = hp["out_dim"] * upsample_factor_multiplier(hp)
         if self.transform_output:

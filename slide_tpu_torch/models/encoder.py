@@ -5,8 +5,8 @@ and the backbone of its keypoint level.
 It returns (last level's features, per-level xyz, per-level features).  With
 `transform_output` the original computes a 1x1 conv and then discards it,
 so the conv exists here only as a parameter, for checkpoints that hold it,
-and never runs.  Neighbour statistics and global attention are not ported
-(ROADMAP item 18): such a config raises.
+and never runs.  `global_attention_setting` and `record_neighbor_stats` act
+as in the denoiser's SA tower.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from slide_tpu_torch.models.denoiser import (build_sa_stack, pos_encode_out_dim,
-                                             positional_encode, reject_unported)
+                                             positional_encode)
 from slide_tpu_torch.nn.layers import Linear, TimestepEmbedder
 from slide_tpu_torch.nn.pnet import PNet2Stage
 
@@ -28,7 +28,6 @@ class PointNetEncoder(nn.Module):
     def __init__(self, config: Mapping[str, Any]):
         super().__init__()
         hp = config
-        reject_unported(hp)
         self.include_t = hp["include_t"]
         self.include_class_condition = hp.get("include_class_condition", False)
         self.include_global_feature = hp.get("include_global_feature", False)
@@ -56,8 +55,10 @@ class PointNetEncoder(nn.Module):
             self.global_pnet = PNet2Stage(
                 mlp1, mlp2, bn=hp.get("bn", True),
                 remove_last_activation=hp.get("global_feature_remove_last_activation", True))
-        self.sa_modules = build_sa_stack(self, hp, in_fea_dim, t_emb_dim=t_emb_dim,
-                                         class_dim=class_dim, global_dim=global_dim)
+        self.sa_modules = build_sa_stack(
+            self, hp, in_fea_dim, t_emb_dim=t_emb_dim, class_dim=class_dim,
+            global_dim=global_dim,
+            global_attention_setting=hp.get("global_attention_setting"))
         if hp.get("transform_output", False):
             self.head_conv = Linear(hp["architecture"]["feature_dim"][-1], hp["out_dim"])
 

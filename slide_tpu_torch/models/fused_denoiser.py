@@ -122,7 +122,8 @@ def supports_config(config: Mapping[str, Any]) -> bool:
     try:
         arch = config["architecture"]
         ok = (
-            config["include_t"]
+            config.get("network_type", "pointnet++") == "pointnet++"
+            and config["include_t"]
             and config.get("include_class_condition", False)
             and not config.get("include_local_feature", True)
             and not config.get("include_global_feature", False)

@@ -1,6 +1,5 @@
-"""Neighbourhood attention pooling (counterpart: `slide_tpu/nn/attention.py`
-`AttentionPool`).  The presets of the generation path build no global
-attention, so `GlobalAttention` is not ported."""
+"""Neighbourhood attention pooling and the global attention (counterpart:
+`slide_tpu/nn/attention.py`: `AttentionPool`, `GlobalAttention`)."""
 
 from __future__ import annotations
 
@@ -68,3 +67,60 @@ class AttentionPool(nn.Module):
                     value = self.feat_out_norm(value)
                 value = torch.relu(value)
         return torch.sum(value * weight, dim=-2)
+
+
+class GlobalAttention(nn.Module):
+    """The reference's global attention module over a level's points.
+
+    Its output is its value path: key, query and value convs, then (with
+    `last_activation`) [GN,] relu on the value.  The reference broadcasts
+    the value over the softmax axis, so the weighted sum of softmax weights
+    that add up to 1 returns the value itself; the key, query and weight
+    stack parameters exist so that the parameter tree matches the JAX
+    package's.  `use_intended_attention=True` computes the softmax-weighted
+    form instead: scores (B, N, N, c) from the weight stack over [query_i,
+    key_j], softmax over j, summed against the value.
+
+    in_dim is the input width, c + additional_dim (flax infers it).
+    """
+
+    def __init__(self, c: int, additional_dim: int = 0, attention_bn: bool = True,
+                 last_activation: bool = True, use_intended_attention: bool = False):
+        super().__init__()
+        in_dim = c + additional_dim
+        self.attention_bn = attention_bn
+        self.last_activation = last_activation
+        self.use_intended_attention = use_intended_attention
+        self.key_conv = Linear(in_dim, c)
+        self.query_conv = Linear(in_dim, c)
+        self.value_conv = Linear(in_dim, c)
+        if last_activation and attention_bn:
+            self.value_norm = TailGroupNorm(min(32, c), c)
+        if attention_bn:
+            self.w_norm_1 = TailGroupNorm(min(32, 2 * c), 2 * c)
+            self.w_norm_2 = TailGroupNorm(min(32, c), c)
+        self.w_conv_1 = Linear(2 * c, c)
+        self.w_conv_2 = Linear(c, c)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        """(B, N, c + additional_dim) -> (B, N, c)."""
+        value = self.value_conv(feat)
+        if self.last_activation:
+            if self.attention_bn:
+                value = self.value_norm(value)
+            value = torch.relu(value)
+        if not self.use_intended_attention:
+            return value
+        key = self.key_conv(feat)
+        query = self.query_conv(feat)
+        n = feat.shape[1]
+        q = query[:, :, None, :].expand(-1, -1, n, -1)
+        k = key[:, None, :, :].expand(-1, n, -1, -1)
+        h = torch.relu(torch.cat([q, k], dim=-1))
+        if self.attention_bn:
+            h = self.w_norm_1(h)
+        h = torch.relu(self.w_conv_1(h))
+        if self.attention_bn:
+            h = self.w_norm_2(h)
+        w = torch.softmax(self.w_conv_2(h), dim=2)
+        return torch.einsum("bijc,bjc->bic", w, value)

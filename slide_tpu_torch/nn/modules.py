@@ -4,8 +4,12 @@
 Channel arithmetic is the JAX package's: coordinate channels (+3 relative,
 +3 absolute, +3 center) go onto the first conv's input (first_conv mode) or
 mlp_spec[0]; KnnFP adds +11 kNN channels to mlp1[0] and +3 xyz channels to
-mlp2[0].  Global attention and neighbour-count statistics are options no
-preset of the generation path turns on; they are not ported.
+mlp2[0].
+
+With `record_neighbor_stats` a module keeps the statistics of its last
+forward's neighbour counts in `neighbor_stats` (the JAX package sows them
+into its "neighbor_stats" collection); `collect_neighbor_stats(net)` reads
+every module's after a forward.
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from slide_tpu_torch.nn.attention import AttentionPool
+from slide_tpu_torch.nn.attention import AttentionPool, GlobalAttention
 from slide_tpu_torch.nn.layers import InjectionMLP
 from slide_tpu_torch.nn.neighborhood import group_knn_features, query_and_group
 from slide_tpu_torch.ops import (furthest_point_sample, gather_points,
@@ -31,6 +35,35 @@ def _coord_extra(use_xyz, include_abs, include_center) -> int:
 
 def _use_attention(setting: Optional[dict]) -> bool:
     return bool(setting) and bool(setting.get("use_attention_module", False))
+
+
+def _use_global_attention(setting: Optional[dict]) -> bool:
+    return bool(setting) and bool(setting.get("use_global_attention_module", False))
+
+
+def _global_attention(setting: dict, c: int) -> GlobalAttention:
+    """Over a level's features with its xyz appended (+3)."""
+    return GlobalAttention(c, additional_dim=3, attention_bn=setting["attention_bn"],
+                           last_activation=setting["last_activation"])
+
+
+# the quantiles of the neighbour counts that are recorded: 0, 0.1, ..., 1
+_QUANTILES = tuple(i / 10.0 for i in range(11))
+
+
+def neighbor_count_stats(counts: torch.Tensor) -> dict:
+    """min / mean / max and the 0..1 quantiles (linear interpolation, as
+    `jnp.quantile`) of per-query neighbour counts, float32."""
+    c = counts.float().reshape(-1)
+    return {"min_mean_max": torch.stack([c.min(), c.mean(), c.max()]),
+            "quantile": torch.quantile(c, torch.tensor(_QUANTILES, device=c.device))}
+
+
+def collect_neighbor_stats(net: nn.Module) -> dict:
+    """{module name: {"min_mean_max", "quantile"}} of every module of `net`
+    that recorded its neighbour counts in its last forward."""
+    return {name: mod.neighbor_stats for name, mod in net.named_modules()
+            if getattr(mod, "neighbor_stats", None) is not None}
 
 
 def _attention(setting: dict, c_in1: int, c_in2: int, c_out: int) -> AttentionPool:
@@ -53,6 +86,8 @@ class SAModule(nn.Module):
                  bn_first: bool = False, bias: bool = False, first_conv: bool = False,
                  first_conv_in_channel: int = 0, res_connect: bool = False,
                  activation: str = "relu", attention_setting: Optional[dict] = None,
+                 global_attention_setting: Optional[dict] = None,
+                 record_neighbor_stats: bool = False,
                  t_emb_dim: Optional[int] = None, condition_dim: Optional[int] = None,
                  second_condition_dim: Optional[int] = None):
         super().__init__()
@@ -63,6 +98,8 @@ class SAModule(nn.Module):
         else:
             fc_in = 0
             spec[0] = spec[0] + extra
+        self.record_neighbor_stats = record_neighbor_stats
+        self.neighbor_stats = None
         self.npoint = npoint
         self.group_kw = dict(nsample=nsample, radius=radius, neighbor_def=neighbor_def,
                              use_xyz=use_xyz,
@@ -84,6 +121,10 @@ class SAModule(nn.Module):
             c_in1 = first_conv_in_channel if first_conv else mlp_spec[0]
             c_in2 = fc_in if first_conv else spec[0]
             self.attention = _attention(attention_setting, c_in1, c_in2, spec[-1])
+        if _use_global_attention(global_attention_setting):
+            self.global_attention = _global_attention(global_attention_setting, spec[-1])
+        else:
+            self.global_attention = None
 
     def forward(self, xyz, features, t_emb=None, condition_emb=None,
                 second_condition_emb=None, pooling: str = "max"):
@@ -94,14 +135,20 @@ class SAModule(nn.Module):
             new_xyz = gather_points(xyz, idx)
             new_feat_q = gather_points(features, idx) if self.use_att else None
         grouped, counts = query_and_group(xyz, new_xyz, features, **self.group_kw)
+        if self.record_neighbor_stats:
+            self.neighbor_stats = neighbor_count_stats(counts)
         out = self.mlp(grouped,
                        t_emb=t_emb if self.include_t else None,
                        condition_emb=condition_emb if self.include_condition else None,
                        second_condition_emb=(second_condition_emb
                                              if self.include_second_condition else None))
         if self.use_att:
-            return new_xyz, self.attention(new_feat_q, grouped, out, counts)
-        return new_xyz, pool_features(out, counts, pooling)
+            new_features = self.attention(new_feat_q, grouped, out, counts)
+        else:
+            new_features = pool_features(out, counts, pooling)
+        if self.global_attention is not None:
+            new_features = self.global_attention(torch.cat([new_features, new_xyz], dim=-1))
+        return new_xyz, new_features
 
 
 def _maybe_group(include_grouper, group_kw, unknown, new_features):
@@ -185,9 +232,12 @@ class KnnFPModule(nn.Module):
                  use_xyz: bool = True, include_abs_coordinate: bool = True,
                  include_center_coordinate: bool = False, neighbor_def: str = "radius",
                  activation: str = "relu", attention_setting: Optional[dict] = None,
+                 global_attention_setting: Optional[dict] = None,
                  t_emb_dim: Optional[int] = None, condition_dim: Optional[int] = None,
                  second_condition_dim: Optional[int] = None):
         super().__init__()
+        if _use_global_attention(global_attention_setting) and include_grouper:
+            raise ValueError("global attention excludes the grouper")
         spec1 = list(mlp1_spec)
         spec2 = list(mlp2_spec)
         spec1[0] = spec1[0] + 11
@@ -219,9 +269,15 @@ class KnnFPModule(nn.Module):
             spec2, bn=bn, include_t=include_t, bn_first=bn_first, bias=bias,
             res_connect=res_connect, include_condition=include_condition,
             activation=activation, t_emb_dim=t_emb_dim, condition_dim=condition_dim)
+        if _use_global_attention(global_attention_setting):
+            self.global_attention = _global_attention(global_attention_setting, spec2[-1])
+        else:
+            self.global_attention = None
 
     def forward(self, unknown, known, unknow_feats, known_feats, t_emb=None,
                 condition_emb=None, second_condition_emb=None, pooling: str = "max"):
+        if known is None and (self.use_att or self.global_attention is not None):
+            raise ValueError("attention KnnFP requires both clouds")
         if known is not None:
             grouped = group_knn_features(unknown, known, known_feats, self.k)
             out1 = self.mlp1(grouped, condition_emb=(
@@ -231,8 +287,6 @@ class KnnFPModule(nn.Module):
             else:
                 interpolated = pool_features(out1, "all", pooling)
         else:
-            if self.use_att:
-                raise ValueError("attention KnnFP requires both clouds")
             interpolated = known_feats.expand(known_feats.shape[0], unknown.shape[1],
                                               known_feats.shape[-1])
         new_features = interpolated if unknow_feats is None \
@@ -246,7 +300,10 @@ class KnnFPModule(nn.Module):
                         condition_emb=condition_emb if self.include_condition else None)
         if self.include_grouper:
             return pool_features(out, counts, pooling)
-        return out[:, :, 0, :]
+        out = out[:, :, 0, :]
+        if self.global_attention is not None:
+            out = self.global_attention(torch.cat([out, unknown], dim=-1))
+        return out
 
 
 class FeatureMapModule(nn.Module):
@@ -262,8 +319,11 @@ class FeatureMapModule(nn.Module):
                  bn_first: bool = True, bias: bool = True, res_connect: bool = True,
                  first_conv: bool = False, first_conv_in_channel: int = 0,
                  activation: str = "relu", attention_setting: Optional[dict] = None,
-                 query_feature_dim: Optional[int] = None):
+                 query_feature_dim: Optional[int] = None,
+                 record_neighbor_stats: bool = False):
         super().__init__()
+        self.record_neighbor_stats = record_neighbor_stats
+        self.neighbor_stats = None
         extra = _coord_extra(use_xyz, include_abs_coordinate, include_center_coordinate)
         spec = list(mlp_spec)
         if first_conv:
@@ -288,6 +348,8 @@ class FeatureMapModule(nn.Module):
                 subset: bool = False, pooling: str = "max"):
         grouped, counts = query_and_group(xyz, new_xyz, features, subset=subset,
                                           **self.group_kw)
+        if self.record_neighbor_stats:
+            self.neighbor_stats = neighbor_count_stats(counts)
         out = self.mlp(grouped)
         if self.use_att:
             return self.attention(features_at_new_xyz, grouped, out, counts)

@@ -24,6 +24,11 @@ from slide_tpu_torch.ops.neighbors import (
     pairwise_sqdist,
     three_nn,
 )
+from slide_tpu_torch.ops.voxel import (
+    avg_voxelize,
+    normalize_coords_for_voxelization,
+    trilinear_devoxelize,
+)
 
 __all__ = [
     "furthest_point_sample", "sample_keypoints", "append_points_to_keypoints",
@@ -32,4 +37,5 @@ __all__ = [
     "masked_avg_pool", "masked_max_pool", "pool_features", "three_interpolate",
     "ball_query", "knn_points", "pairwise_sqdist", "three_nn",
     "calc_cd", "chamfer_parts", "fscore", "approx_match", "earth_mover_distance",
+    "avg_voxelize", "trilinear_devoxelize", "normalize_coords_for_voxelization",
 ]

@@ -14,7 +14,7 @@ Pallas kernel): a few (n, m) products a round, in fp32 with TF32 off, on
 the device of its inputs.  At level -4^7 = -16384 a rounding gap of delta
 in a squared distance is a relative gap of 16384 delta in its weight, so
 two fp32 implementations agree to ~1e-3 relative on a match, not to fp32
-rounding (`tests/test_torch_eval.py` states the measured gap).
+rounding (`tests/torch_eval_cases.py` states the measured gap).
 """
 
 from __future__ import annotations

@@ -5,14 +5,27 @@ into 6 tetrahedra; every tetrahedron contributes 0-2 triangles fixed by its
 faces, and per-vertex normals from the negated field gradient.
 
 `marching_tetrahedra_numpy` is the oracle that the card's extraction
-(`marching_gpu.py`) is held to.  The JAX package's native C++ route
-(`slide_tpu/native/marching.cpp`) is not ported: `marching_tetrahedra` runs
-the numpy route.
+(`marching_gpu.py`) is held to.  `marching_tetrahedra` runs the native
+C++ pass (`native/marching.cpp`, a copy of the JAX package's, built with
+g++ at first use by `_build.load_host_library`): the same content in
+another vertex and face order.  It takes the numpy route only where the
+native pass's dedup table (28 bytes a voxel) would pass 1 GiB, or where the
+caller asks (`native=False`); a failed build raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+
+from slide_tpu_torch import _build
+
+# the native pass's perfect-dedup table: 28 bytes a voxel (59 MB at 128^3,
+# 3.8 GB at 512^3); above this the numpy route runs
+NATIVE_TABLE_LIMIT = 1 << 30
 
 # cube corner offsets, standard numbering
 _CORNERS = np.array([
@@ -47,12 +60,62 @@ _CASES: dict[int, list[tuple[int, int, int]]] = {
 }
 
 
-def marching_tetrahedra(vol: np.ndarray, level: float = 0.0):
+@functools.cache
+def native_library() -> ctypes.CDLL:
+    """The native pass, built at first use; raises when the build fails."""
+    lib = _build.load_host_library("marching")
+    p = ctypes.c_void_p
+    lib.mt_run.restype = p
+    lib.mt_run.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_float]
+    lib.mt_num_verts.restype = ctypes.c_int64
+    lib.mt_num_verts.argtypes = [p]
+    lib.mt_num_faces.restype = ctypes.c_int64
+    lib.mt_num_faces.argtypes = [p]
+    lib.mt_copy.restype = None
+    lib.mt_copy.argtypes = [p, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
+                            ctypes.POINTER(ctypes.c_float)]
+    lib.mt_free.restype = None
+    lib.mt_free.argtypes = [p]
+    return lib
+
+
+def marching_tetrahedra_native(vol: np.ndarray, level: float = 0.0):
+    """The native pass (`marching_tetrahedra`'s contract)."""
+    lib = native_library()
+    vol = np.ascontiguousarray(vol, np.float32)
+    r0, r1, r2 = vol.shape
+    h = lib.mt_run(vol.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), r0, r1, r2,
+                   ctypes.c_float(level))
+    if not h:
+        raise ValueError("level surface is empty")
+    try:
+        nv, nf = lib.mt_num_verts(h), lib.mt_num_faces(h)
+        verts = np.empty((nv, 3), np.float32)
+        faces = np.empty((nf, 3), np.int64)
+        normals = np.empty((nv, 3), np.float32)
+        lib.mt_copy(h, verts.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                    faces.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    normals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    finally:
+        lib.mt_free(h)
+    return verts, faces, normals
+
+
+def _takes_native(n_voxels: int, native: bool) -> bool:
+    return native and n_voxels * 28 <= NATIVE_TABLE_LIMIT
+
+
+def marching_tetrahedra(vol: np.ndarray, level: float = 0.0, native: bool = True):
     """Extract the `level` iso-surface of a (r0, r1, r2) scalar field.
 
     Returns (verts (V, 3) in grid-index coordinates, faces (F, 3) int,
     normals (V, 3) unit, = -grad field).  Raises ValueError if the surface
-    is empty."""
+    is empty.  The native pass runs unless `native` is False or its dedup
+    table would pass NATIVE_TABLE_LIMIT; the numpy route gives the same
+    content in another order."""
+    if _takes_native(int(np.prod(np.shape(vol))), native):
+        return marching_tetrahedra_native(vol, level)
     return marching_tetrahedra_numpy(vol, level)
 
 
@@ -139,17 +202,20 @@ def marching_tetrahedra_numpy(vol: np.ndarray, level: float = 0.0):
     return verts, faces, normals
 
 
-def mc_from_psr(psr_grid, real_scale: bool = False, zero_level: float = 0.0):
+def mc_from_psr(psr_grid, real_scale: bool = False, zero_level: float = 0.0,
+                num_threads: int = 0, native: bool = True):
     """Batch iso-surface extraction from a (B, r, r, r) PSR grid, vertices
     scaled to [0, 1) (or [0, 1] with real_scale).  Returns (list of verts,
     list of faces, list of normals); an empty surface yields empty arrays
-    for that element when batched (a lone element still raises)."""
+    for that element when batched (a lone element still raises).
+    num_threads > 1 extracts the batch's elements on a thread pool (the
+    native pass and numpy's hot operations release the GIL)."""
     grid = np.asarray(psr_grid)
     s = grid.shape[-1]
 
     def one(i):
         try:
-            v, f, n = marching_tetrahedra(grid[i], level=zero_level)
+            v, f, n = marching_tetrahedra(grid[i], level=zero_level, native=native)
         except ValueError:
             if grid.shape[0] == 1:
                 raise
@@ -158,6 +224,12 @@ def mc_from_psr(psr_grid, real_scale: bool = False, zero_level: float = 0.0):
         v = v / (s - 1) if real_scale else v / s
         return v.astype(np.float32), f, n.astype(np.float32)
 
-    results = [one(i) for i in range(grid.shape[0])]
+    if num_threads > 1 and grid.shape[0] > 1:
+        if _takes_native(grid[0].size, native):
+            native_library()            # built once, before the workers start
+        with ThreadPoolExecutor(num_threads) as pool:
+            results = list(pool.map(one, range(grid.shape[0])))
+    else:
+        results = [one(i) for i in range(grid.shape[0])]
     return ([r[0] for r in results], [r[1] for r in results],
             [r[2] for r in results])

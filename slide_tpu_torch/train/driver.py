@@ -47,8 +47,10 @@ EMA shadow as the JAX package's hooks do (`make_generation_eval_hook`,
 `make_ae_eval_hook`, `make_latent_eval_hook`, `make_sap_eval_hook`), into
 <experiment root>/eval_result[/model_ema_<rate>] with `_iter_<n>` tags.
 
-Left out (ROADMAP): the device-resident corpus (15a's `device_data`); a
-config asking for it raises.
+With `train_config["device_data"]` the corpus lives on the device and
+each step's batch is assembled there (`run_training`).  The denoiser is
+the one `pointnet_config["network_type"]` names (`build_network`):
+`ConditionalPointNet2` (fused where in scope), `PVCNN2` or `PointwiseNet`.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from slide_tpu_torch.data import get_dataloader
+from slide_tpu_torch.data import DeviceCorpus, get_dataloader, make_assemble_fn
 from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
                                        diffusion_training_loss, latent_config_weights,
                                        latent_denoise_and_reconstruct, latent_train_loss,
@@ -73,7 +75,8 @@ from slide_tpu_torch.diffusion import (X0Schedule, calc_diffusion_hyperparams,
 from slide_tpu_torch.eval import (ae_quantitative_eval, ae_visual_eval, evaluate_per_rank,
                                   sap_grid_eval)
 from slide_tpu_torch.eval.generation import conditioned_net_fn
-from slide_tpu_torch.models import ConditionalPointNet2, build_autoencoder, decode_params
+from slide_tpu_torch.models import (PVCNN2, ConditionalPointNet2, build_autoencoder,
+                                    decode_params, get_pointwise_net)
 from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn, make_fused_train_fn
 from slide_tpu_torch.ops import sample_keypoints
 from slide_tpu_torch.pipeline import resolve_device
@@ -84,7 +87,7 @@ from slide_tpu_torch.train.ema import ema_init, ema_update
 from slide_tpu_torch.nn.layers import GroupNorm
 from slide_tpu_torch.nn.precision import activation_dtype_scope
 from slide_tpu_torch.weights import (flax_leaves, flax_order, flax_path, flax_to_torch_state,
-                                     load_flax_params, module_to_flax)
+                                     kernel_to_torch, load_flax_params, module_to_flax)
 
 
 @dataclasses.dataclass
@@ -102,12 +105,13 @@ class TrainState:
 
 def init_params(net: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw `net`'s parameters from `generator` with the JAX package's
-    initialisers: dense kernels U(-1/sqrt(fan_in), 1/sqrt(fan_in)) and zero
-    biases, GroupNorm scale 1 and bias 0, class embeddings N(0, 1)."""
+    initialisers: dense and convolution kernels U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) and zero biases, GroupNorm scale 1 and bias 0, class
+    embeddings N(0, 1)."""
     with torch.no_grad():
         for mod in net.modules():
-            if isinstance(mod, nn.Linear):
-                bound = 1.0 / math.sqrt(mod.in_features)
+            if isinstance(mod, (nn.Linear, nn.Conv3d)):
+                bound = 1.0 / math.sqrt(mod.weight[0].numel())
                 w = torch.rand(mod.weight.shape, generator=generator,
                                device=generator.device)
                 mod.weight.copy_(w * (2 * bound) - bound)
@@ -120,6 +124,22 @@ def init_params(net: nn.Module, generator: torch.Generator) -> nn.Module:
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
     return net
+
+
+def build_network(pointnet_config: dict) -> nn.Module:
+    """The denoiser that `pointnet_config["network_type"]` names:
+    "pointnet++" (the default) `ConditionalPointNet2`, "pointwise_net"
+    `PointwiseNet(**network_args)`, "pvd" `PVCNN2(**network_args)` over
+    3 + `in_fea_dim` input channels.  Only the first has a fused route."""
+    nt = pointnet_config.get("network_type", "pointnet++")
+    if nt == "pointnet++":
+        return ConditionalPointNet2(pointnet_config)
+    if nt == "pointwise_net":
+        return get_pointwise_net(pointnet_config["network_args"])
+    if nt == "pvd":
+        return PVCNN2(in_dim=3 + pointnet_config["in_fea_dim"],
+                      **pointnet_config.get("network_args", {}))
+    raise ValueError(f"network_type {nt} is not supported")
 
 
 def _new_state(net: nn.Module, train_config: dict) -> TrainState:
@@ -218,7 +238,8 @@ def maybe_fused_train_apply(pointnet_config: dict, n_points: int, net: nn.Module
                             fused: bool = True) -> Optional[Callable]:
     """The differentiable fused denoiser `(x, ts, label) -> eps` for the
     train step (`make_fused_train_fn`: K1 + K2 on the card), or None when
-    `fused` is off or the config is outside the fused scope."""
+    `fused` is off or the config is outside the fused scope (another
+    `network_type` is: `fused_denoiser.supports_config`)."""
     if not fused:
         return None
     return make_fused_train_fn(pointnet_config, net, n_points)
@@ -324,7 +345,7 @@ def load_adam_state(state: TrainState, saved) -> None:
         for key, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
             arr = np.asarray(tree[name], np.float32)
             if flax_path(net, name)[1]:
-                arr = arr.T
+                arr = kernel_to_torch(arr)
             as_torch[key] = torch.as_tensor(np.ascontiguousarray(arr), device=p.device)
         opt.state[p] = {"step": torch.tensor(float(count)), **as_torch}
 
@@ -364,10 +385,20 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
     steps and hooks run under it (`nn/precision.py`), and the dtype before
     the run is restored when it ends.  Returns (state,
     [(iter, loss), ...]) with a loss every `iters_per_logging` iterations;
-    a non-finite logged loss raises FloatingPointError."""
+    a non-finite logged loss raises FloatingPointError.
+
+    With `train_config["device_data"]` the split's raw clouds (and grids)
+    go to the device once (`data/device_corpus.py`; their bytes are logged
+    first) and each step's batch is assembled there from a (B,) int32 index
+    array, the only per-step transfer: epochs are permutations of the
+    dataset's entries from `np.random.default_rng(seed)`, full batches
+    only (the ragged tail is dropped), as the JAX package's; the
+    assembly's draws come from a generator on the device seeded with seed
+    + 101.  The checkpoint, hook and resume cadence is the loader's.
+    `steps_per_dispatch` (the JAX package's steps per `lax.scan`) is
+    accepted and has no effect: the port dispatches step by step until
+    its steps are captured as CUDA graphs (ROADMAP item 7)."""
     train_config = config["train_config"]
-    if train_config.get("device_data", False):
-        raise NotImplementedError("device_data: not ported yet (ROADMAP Queue A, item 15a)")
     scope = activation_dtype_scope(train_config["activation_dtype"]) \
         if "activation_dtype" in train_config else contextlib.nullcontext()
     with scope:
@@ -406,6 +437,9 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
 
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
     loader = get_dataloader(trainset_config, phase="train", seed=seed)
+    batches = _loader_batches(loader, dev)
+    if train_config.get("device_data", False):
+        batches = _device_batches(loader.dataset, trainset_config, dev, seed, verbose)
     loader_len = len(loader)
     n_iters = int(loader_len * train_config["n_epochs"])
     if max_iters is not None:
@@ -420,20 +454,15 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
     warned_partial = False
     while n_iter < n_iters:
         start_iter = n_iter
-        for batch in loader:
+        for dbatch in batches(batch_size):
             if n_iter >= n_iters:
                 break
-            if batch["label"].shape[0] != batch_size:
+            if dbatch["label"].shape[0] != batch_size:
                 if not warned_partial:
-                    print(f"warning: skipping partial batch of {batch['label'].shape[0]} "
+                    print(f"warning: skipping partial batch of {dbatch['label'].shape[0]} "
                           f"(batch_size {batch_size})", flush=True)
                     warned_partial = True
                 continue
-            dbatch = {key: torch.as_tensor(batch[key], dtype=dtype, device=dev)
-                      for key, dtype in (("points", torch.float32),
-                                         ("normals", torch.float32),
-                                         ("psr", torch.float32),
-                                         ("label", torch.int64)) if key in batch}
             loss = train_step(state, dbatch, generator)
             if n_iter % iters_per_logging == 0:
                 loss_v = float(loss)
@@ -450,6 +479,8 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
                       int(time.time() - t0) + time_offset, durable_dir)
                 if eval_hook is not None:
                     eval_hook(state.net, state.ema, n_iter - 1)
+            if n_iter >= n_iters:
+                break                    # before the next batch is made
         if n_iter == start_iter:
             raise ValueError(f"no full batches of {batch_size} in the dataset: "
                              f"batch_size exceeds the usable dataset size")
@@ -458,6 +489,39 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
         _save(state, output_directory, n_iter - 1, int(time.time() - t0) + time_offset,
               durable_dir)
     return state, losses
+
+
+def _loader_batches(loader, dev) -> Callable:
+    """`batches(batch_size)`: one epoch of the loader's batches, on `dev`."""
+    def batches(batch_size):
+        for batch in loader:
+            yield {key: torch.as_tensor(batch[key], dtype=dtype, device=dev)
+                   for key, dtype in (("points", torch.float32), ("normals", torch.float32),
+                                      ("psr", torch.float32), ("label", torch.int64))
+                   if key in batch}
+    return batches
+
+
+def _device_batches(dataset, trainset_config: dict, dev, seed: int,
+                    verbose: bool) -> Callable:
+    """`batches(batch_size)`: one epoch of batches assembled on `dev` from
+    the corpus, the full batches of a permutation of the dataset's entries
+    (numpy, seeded with `seed`, as the JAX package's `ep_rng`)."""
+    corpus = DeviceCorpus.from_dataset(dataset)
+    if verbose:
+        print(f"device corpus: {len(corpus)} entries, {corpus.nbytes} bytes", flush=True)
+    corpus = corpus.to(dev)
+    assemble = make_assemble_fn(trainset_config)
+    data_gen = torch.Generator(device=dev).manual_seed(seed + 101)
+    ep_rng = np.random.default_rng(seed)
+
+    def batches(batch_size):
+        n = len(corpus)
+        perm = ep_rng.permutation(n)
+        for i in range(n // batch_size):
+            idx = torch.as_tensor(perm[i * batch_size:(i + 1) * batch_size].astype(np.int32))
+            yield assemble(corpus, idx.to(dev), data_gen)
+    return batches
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +600,8 @@ def make_generation_eval_hook(config: dict, *, data_dir: Optional[str] = None,
             calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"], dev)
         custom = None
         if sdc is not None:
-            fused_fn = make_fused_net_fn(net.config, net, num_points) if fused else None
+            fused_fn = make_fused_net_fn(config["pointnet_config"], net, num_points) \
+                if fused else None
             custom = x0_sampler(net, X0Schedule.from_config(sdc, dev), fused_fn)
         evaluate_per_rank(net, trainset_config, sched, save_dir, task, point_feature_dim=pfd,
                           ckpt_info=ckpt_info, seed=seed, fused=fused, device=dev,
@@ -654,7 +719,7 @@ def build_position_ddpm(config: dict, *, seed: int = 0, device=None, fused: bool
     torch.backends.cudnn.allow_tf32 = False
     dev = resolve_device(device)
     pointnet_config = config["pointnet_config"]
-    net = ConditionalPointNet2(pointnet_config)
+    net = build_network(pointnet_config)
     init_params(net, torch.Generator().manual_seed(seed))
     state = _new_state(net.to(dev).train(), train_config)
     n_points = trainset_config["num_keypoints"] if task == "keypoint_generation" \
@@ -816,7 +881,7 @@ def build_latent_training(config: dict, ae_params, *, seed: int = 0, device=None
     trainset_config = config["shapenet_psr_dataset_config"]
     sched = X0Schedule.from_config(config["standard_diffusion_config"], dev)
     pointnet_config = config["pointnet_config"]
-    net = ConditionalPointNet2(pointnet_config)
+    net = build_network(pointnet_config)
     init_params(net, torch.Generator().manual_seed(seed))
     state = _new_state(net.to(dev).train(), config["train_config"])
     ae = build_autoencoder(config["autoencoder_config"]["pointnet_config"])
@@ -929,7 +994,7 @@ def build_upsampler_training(config: dict, *, ae_params=None, seed: int = 0, dev
     pointnet_config = config["pointnet_config"]
     dpsr_config = config["dpsr_config"]
     dpsr = DPSR((dpsr_config["grid_res"],) * 3, sig=dpsr_config["psr_sigma"]).to(dev)
-    net = ConditionalPointNet2(pointnet_config)
+    net = build_network(pointnet_config)
     init_params(net, torch.Generator().manual_seed(seed))
     state = _new_state(net.to(dev).train(), config["train_config"])
     ae, noise_magnitude = None, 0.0

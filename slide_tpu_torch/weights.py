@@ -6,6 +6,7 @@ Torch modules of the port carry the flax module names, so a flax path maps
 onto a `state_dict` key by joining it with dots and renaming the leaf:
 
     Dense       kernel (in, out)  -> weight (out, in), transposed
+    Conv (3-D)  kernel (kd, kh, kw, in, out) -> weight (out, in, kd, kh, kw)
                 bias              -> bias
     GroupNorm   scale / bias      -> weight / bias
     Embed       embedding         -> weight
@@ -78,6 +79,27 @@ def load_inference_params(path: str, ema_idx: int = -1) -> Mapping[str, Any]:
     return ckpt["model_state_dict"]
 
 
+def kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """A flax kernel in torch's layout: a Dense kernel (in, out) transposed;
+    a convolution's (kd, kh, kw, in, out) as (out, in, kd, kh, kw).  (`.T`
+    would give (out, in, kw, kh, kd): the same shape for a cubic kernel,
+    the taps mirrored.)"""
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 5:
+        return arr.transpose(4, 3, 0, 1, 2)
+    raise ValueError(f"no torch layout for a kernel of shape {arr.shape}")
+
+
+def kernel_to_flax(arr: np.ndarray) -> np.ndarray:
+    """The inverse of `kernel_to_torch`."""
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 5:
+        return arr.transpose(2, 3, 4, 1, 0)
+    raise ValueError(f"no flax layout for a kernel of shape {arr.shape}")
+
+
 def flax_to_torch_state(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
     """Flatten a flax parameter tree into torch `state_dict` keys."""
     out: dict[str, np.ndarray] = {}
@@ -92,7 +114,7 @@ def flax_to_torch_state(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
             raise ValueError(f"no torch name for flax leaf {'/'.join(path)}")
         arr = np.asarray(node, dtype=np.float32)
         if leaf == "kernel":
-            arr = arr.T
+            arr = kernel_to_torch(arr)
         out[".".join(mods + [_LEAF_NAMES[leaf]])] = np.ascontiguousarray(arr)
 
     walk(params, ())
@@ -121,14 +143,14 @@ def load_flax_params(module: torch.nn.Module,
 
 
 def flax_path(module: torch.nn.Module, name: str) -> tuple[tuple, bool]:
-    """The flax path of a parameter and whether its array is transposed:
-    Linear weight -> kernel (in, out), GroupNorm weight -> scale,
-    Embedding weight -> embedding."""
+    """The flax path of a parameter and whether its array changes layout
+    (`kernel_to_flax`): Linear and Conv3d weight -> kernel, GroupNorm
+    weight -> scale, Embedding weight -> embedding."""
     *path, leaf = name.split(".")
     owner = module.get_submodule(".".join(path))
     transpose = False
     if leaf == "weight":
-        if isinstance(owner, torch.nn.Linear):
+        if isinstance(owner, (torch.nn.Linear, torch.nn.Conv3d)):
             leaf, transpose = "kernel", True
         elif isinstance(owner, torch.nn.Embedding):
             leaf = "embedding"
@@ -149,7 +171,7 @@ def module_to_flax(module: torch.nn.Module,
         t = p if tensors is None else tensors[name]
         arr = t.detach().cpu().numpy().astype(np.float32)
         if transpose:
-            arr = np.ascontiguousarray(arr.T)
+            arr = np.ascontiguousarray(kernel_to_flax(arr))
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})

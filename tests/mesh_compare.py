@@ -51,3 +51,18 @@ def assert_same_mesh(got, want, scale=1.0):
     diff = mesh_difference(got, want, scale)
     assert diff["same_sizes"] and diff["same_faces"], diff
     assert diff["vert_err"] <= MESH_VERT_ATOL and diff["normal_err"] <= MESH_NORMAL_ATOL, diff
+
+
+def same_content(got, want) -> bool:
+    """Two extractions of one surface, each (verts, faces, normals), hold
+    the same vertices and normals bit for bit and the same faces read as
+    sets of corner coordinates, in any vertex and face order (the native
+    pass and the numpy oracle order them differently)."""
+    (v1, f1, n1), (v2, f2, n2) = got, want
+    if v1.shape != v2.shape or f1.shape != f2.shape:
+        return False
+    k1, k2 = np.lexsort(v1.T), np.lexsort(v2.T)
+    t1 = np.sort(v1[f1].reshape(len(f1), -1), axis=1)
+    t2 = np.sort(v2[f2].reshape(len(f2), -1), axis=1)
+    return bool(np.array_equal(v1[k1], v2[k2]) and np.array_equal(n1[k1], n2[k2])
+                and np.array_equal(t1[np.lexsort(t1.T)], t2[np.lexsort(t2.T)]))

@@ -1,0 +1,8 @@
+"""Part 5 of 6 of the tests in `torch_ae_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_ae_cases import (  # noqa: F401
+    _one_torch_thread, kl_level, round_trip, test_ae_encode_and_losses_match_jax,
+    test_ae_loss_gradient_matches_jax, test_ae_train_step_matches_optax,
+)

@@ -8,8 +8,8 @@ the JAX package on the CPU.  The dual-tower net is
 `torch_port_helpers.conditional_config` (the JAX package's own test net),
 its weights drawn by the port's `init_params` and perturbed.
 
-Tolerances: forwards ATOL 5e-5 (+ rtol 1e-5), as `tests/test_torch_models.py`,
-the narrow encoder 3e-4 (`tests/test_torch_ae.py`'s ENC_ATOL); what passes
+Tolerances: forwards ATOL 5e-5 (+ rtol 1e-5), as `tests/torch_models_cases.py`,
+the narrow encoder 3e-4 (`tests/torch_ae_cases.py`'s ENC_ATOL); what passes
 through the global PNet of the condition 5e-4 between the packages
 (GLOBAL_ATOL: its GroupNorms normalise single channels over 24 points, and
 JAX's fp32 statistics put its global feature 1.5e-4 from the port's float64
@@ -18,7 +18,7 @@ float64 run; the cached
 forward against the direct one 1e-5 (the JAX package's contract test); one
 train step's loss rtol 1e-5 and its gradient, read as Adam's first moment
 (0.1 g), rtol 5e-3, atol 1e-5; the conditional evaluation's npz 2e-5
-(`tests/test_torch_eval.py`'s CHAIN_ATOL); in bf16, every neighbour and FPS
+(`tests/torch_eval_cases.py`'s CHAIN_ATOL); in bf16, every neighbour and FPS
 pick whose input equals the fp32 run's is the fp32 run's pick."""
 
 import copy
@@ -394,11 +394,13 @@ def test_activation_dtype_switch(monkeypatch):
         tdriver._run_training = lambda *a, **k: seen.append(tp.activation_dtype())
         tdriver.run_training(cfg, None, None)
         tdriver.run_training({**cfg, "train_config": {}}, None, None)
+        # device_data is ported (tests/test_torch_device_corpus.py): it runs
+        # under the same scope
+        tdriver.run_training({**cfg, "train_config": {"activation_dtype": "bfloat16",
+                                                      "device_data": True}}, None, None)
     finally:
         tdriver._run_training = real
-    assert seen == [torch.bfloat16, None] and tp.activation_dtype() is None
-    with pytest.raises(NotImplementedError, match="item 15a"):
-        tdriver.run_training({"train_config": {"device_data": True}}, None, None)
+    assert seen == [torch.bfloat16, None, torch.bfloat16] and tp.activation_dtype() is None
     _check_bf16_picks(monkeypatch)
 
 

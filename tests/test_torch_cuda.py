@@ -1201,3 +1201,90 @@ def test_conditional_net_card_matches_cpu(cuda, monkeypatch):
     print(f"conditional net: {errs} of {scale}; kNN ties {replay.ties}")
     assert card.shape == (2, 2048, 6)
     assert max(errs.values()) <= COND_NET_TOL * scale
+
+
+# ---------------------------------------------------------------------------
+# The corpus on the card, PVCNN2 at full width, the host's native marching
+
+
+@pytest.mark.cuda
+def test_assemble_card_matches_cpu(cuda, tmp_path):
+    # every augmentation on, the same handed-in draws: gathers equal, the
+    # arithmetic within 1e-6 of the cloud's size (a mean, a few products)
+    from slide_tpu_torch import data as tdata
+    root = tdata.write_synthetic_shapenet_psr(str(tmp_path / "data"), models_per_split=8,
+                                              num_points=600, psr_res=16)
+    ds = tdata.ShapesPSRDataset(root, split="train", categories=["02691156"],
+                                num_gt_points=256, load_psr=True, repeat_dataset=3)
+    corpus = tdata.DeviceCorpus.from_dataset(ds)
+    trainset = {"npoints": 256, "scale": 0.5, "centered_to_centroid": True,
+                "augmentation": {"mirror_prob": 0.5, "noise_magnitude": 0.02,
+                                 "translation_magnitude": 0.1, "augm_scale": 1.2}}
+    assemble = tdata.make_assemble_fn(trainset)
+    idx = torch.tensor([0, 23, 5, 5, 17, 9, 12, 2], dtype=torch.int32)
+    draws = tdata.draw_assembly(trainset, 8, 600, torch.Generator().manual_seed(3))
+    want = assemble(corpus, idx, draws=draws)
+    got = assemble(corpus.to(cuda), idx.to(cuda), draws={k: v.to(cuda) for k, v in draws.items()})
+    for k in ("label", "psr"):
+        assert torch.equal(got[k].cpu(), want[k])
+    for k in ("points", "normals"):
+        err = float((got[k].cpu() - want[k]).abs().max())
+        assert err <= 1e-6 * max(1.0, float(want[k].abs().max())), (k, err)
+    own = assemble(corpus.to(cuda), idx.to(cuda), torch.Generator(device=cuda).manual_seed(0))
+    assert own["points"].shape == (8, 256, 3) and own["points"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_full_width_pvcnn2_card_matches_float64(cuda):
+    # PVD's widths (embed 64, SA centres 1024/256/64/16, voxels 32/16/8,
+    # attention) at 2048 points with normals, two clouds: the card against
+    # the float64 CPU module on the card's FPS, ball-query and 3-NN picks
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pick_replay import pvcnn2_picks_replayed
+    from slide_tpu_torch.models import PVCNN2
+    from slide_tpu_torch.train.driver import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = init_params(PVCNN2(in_dim=6, out_dim=6), torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(4)
+    pts = torch.randn((2, 2048, 3), generator=gen) * torch.tensor([0.4, 0.15, 0.3])
+    nrm = torch.nn.functional.normalize(torch.randn((2, 2048, 3), generator=gen), dim=-1)
+    x = torch.cat([pts, nrm], dim=-1)
+    ts = torch.tensor([3, 700])
+    before = _build.launch_counts["fps"]
+    card, ref, picks = pvcnn2_picks_replayed(net.to(cuda), (x.to(cuda), None, ts.to(cuda)),
+                                             (x.double(), None, ts), "cpu", torch.float64)
+    assert _build.launch_counts["fps"] == before + 4
+    assert picks == 4 + 4 + 4 and card.shape == (2, 2048, 6)
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((card - ref).abs().max())
+    print(f"PVCNN2 card vs float64: {err} of {scale}")
+    assert err <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_native_and_device_marching_agree(cuda):
+    # one 96^3 field: the card's extraction and the host's native pass give
+    # the same mesh (the mesh gate: faces with their winding, vertices,
+    # normals), each against the numpy oracle too
+    import os
+    import sys
+    import numpy as np
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from mesh_compare import assert_same_mesh
+    from slide_tpu_torch.sap import marching, marching_gpu
+    r = 96
+    x = np.linspace(-1, 1, r)
+    gx, gy, gz = np.meshgrid(x, x, x, indexing="ij")
+    vol = (0.5 - np.sqrt(gx ** 2 + gy ** 2 + gz ** 2)
+           + 0.2 * np.sin(4 * gx) * np.cos(3 * gy)).astype(np.float32)
+    native = marching.marching_tetrahedra(vol)
+    mesh = marching_gpu.marching_tetrahedra_device(torch.as_tensor(vol, device=cuda)[None], 0.0)
+    device = marching_gpu.mesh_to_host(mesh, 0)
+    oracle = marching.marching_tetrahedra_numpy(vol)
+    # the device mesh of a bare grid is in grid units, as the host's
+    assert_same_mesh(device, oracle)
+    assert_same_mesh(native, oracle)
+    assert_same_mesh(device, native)

@@ -1,7 +1,7 @@
 """The checkpoint-time eval hooks of the port's training driver
 (`slide_tpu_torch/train/driver.py`: `make_generation_eval_hook`,
 `make_latent_eval_hook`; the autoencoder's and the SAP net's hooks are run
-by `tests/test_torch_ae.py` and `tests/test_torch_upsampler_train.py`) on
+by `tests/torch_ae_cases.py` and `tests/torch_upsampler_train_cases.py`) on
 the CPU: `train_*(eval_hook="auto")` takes a few steps with one checkpoint
 of the cadence and writes the files that the JAX package's hooks name
 (`slide_tpu/train/driver.py::make_generation_eval_hook` /

@@ -1,0 +1,7 @@
+"""Part 1 of 11 of the tests in `torch_fused_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_fused_cases import (  # noqa: F401
+    one_thread, test_spec_equals_jax, test_unsupported_configs_are_rejected,
+)

@@ -1,8 +1,11 @@
 """The port stands alone: no file of `slide_tpu_torch/`, nor `chip_smoke.py`,
 imports JAX, flax, optax, PyYAML or anything of the JAX package `slide_tpu`
-(the card's machine has no PyYAML)."""
+(the card's machine has no PyYAML).  And every test of an uncollected
+`tests/torch_<name>_cases.py` module runs: its `tests/test_torch_<name>_<k>.py`
+parts import each of its tests exactly once."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -23,6 +26,12 @@ SAP = ("sap/__init__.py", "sap/dpsr.py", "sap/mirror.py", "sap/refine.py",
 # which copy JAX-package modules that import JAX
 CONDITIONAL = ("diffusion/x0.py", "models/denoiser.py", "eval/generation.py",
                "nn/precision.py")
+# the corpus on the device, the data tools, the alternate backbones and
+# their voxel ops, which copy JAX-package modules that import JAX or PyYAML
+CASES = sorted((REPO / "tests").glob("torch_*_cases.py"))
+BACKBONES = ("data/device_corpus.py", "data/tools.py", "data/object_io.py",
+             "ops/voxel.py", "models/pvcnn.py", "models/pointwise_net.py",
+             "nn/attention.py", "nn/modules.py")
 
 
 def _imported(path: Path):
@@ -39,7 +48,8 @@ def _imported(path: Path):
 
 def test_the_port_has_files():
     assert len(FILES) > 15
-    for rel in TRAINING + AE + SAP + CONDITIONAL:
+    assert (REPO / "slide_tpu_torch" / "native" / "marching.cpp").is_file()
+    for rel in TRAINING + AE + SAP + CONDITIONAL + BACKBONES:
         assert REPO / "slide_tpu_torch" / rel in FILES
 
 
@@ -47,3 +57,19 @@ def test_the_port_has_files():
 def test_no_jax_import(path):
     bad = [m for m in _imported(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("cases", CASES, ids=lambda p: p.name)
+def test_each_case_is_imported_by_exactly_one_part(cases):
+    name = cases.name[len("torch_"):-len("_cases.py")]
+    defined = {node.name for node in ast.parse(cases.read_text()).body
+               if isinstance(node, ast.FunctionDef) and node.name.startswith("test_")}
+    parts = [p for p in (REPO / "tests").glob(f"test_torch_{name}_*.py")
+             if re.fullmatch(rf"test_torch_{name}_\d+\.py", p.name)]
+    imported = [a.name for part in parts for node in ast.walk(ast.parse(part.read_text()))
+                if isinstance(node, ast.ImportFrom) and node.module == cases.stem
+                for a in node.names if a.name.startswith("test_")]
+    assert defined and parts
+    assert sorted(imported) == sorted(defined), (
+        f"not run: {sorted(defined - set(imported))}, "
+        f"run twice or unknown: {sorted(n for n in set(imported) if imported.count(n) > 1 or n not in defined)}")

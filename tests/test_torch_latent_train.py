@@ -230,9 +230,12 @@ def test_train_latent_ddpm_checkpoints_and_resumes(tmp_path):
     # the JAX package would resume from it, EMA shadows included
     ckpt = jckpt.load_checkpoint(ckpt_dir)
     assert ckpt["iter"] == 3 and len(ckpt["ema_state_list"]) == 2
-    # activation_dtype is ported (tests/test_torch_conditional.py); the
-    # device-resident corpus still raises, naming its item
-    bad = copy.deepcopy(cfg)
-    bad["train_config"]["device_data"] = True
-    with pytest.raises(NotImplementedError, match="item 15a"):
-        tdriver.train_latent_ddpm(bad, ae_params, data_dir=root, max_iters=4, device="cpu")
+    # activation_dtype (tests/test_torch_conditional.py) and the corpus on
+    # the device are ported: the loader run's checkpoint resumes under
+    # device_data (tests/test_torch_device_corpus.py)
+    dev_cfg = copy.deepcopy(cfg)
+    dev_cfg["train_config"]["device_data"] = True
+    state3, losses3 = tdriver.train_latent_ddpm(dev_cfg, ae_params, data_dir=root, max_iters=6,
+                                                device="cpu", verbose=False)
+    assert [i for i, _ in losses3] == [4, 5] and np.isfinite([l for _, l in losses3]).all()
+    assert state3.step == 6 and find_max_iter(ckpt_dir) == 5

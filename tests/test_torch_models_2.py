@@ -1,0 +1,8 @@
+"""Part 2 of 6 of the tests in `torch_models_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_models_cases import (  # noqa: F401
+    small_decode, test_weight_bridge_is_strict, test_load_inference_params_matches_the_cli,
+    test_real_autoencoder_decode_loads_strictly,
+)

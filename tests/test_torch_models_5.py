@@ -1,0 +1,7 @@
+"""Part 5 of 6 of the tests in `torch_models_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_models_cases import (  # noqa: F401
+    small_decode, test_autoencoder_decode_small,
+)

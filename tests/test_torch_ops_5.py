@@ -1,0 +1,8 @@
+"""Part 5 of 8 of the tests in `torch_ops_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_ops_cases import (  # noqa: F401
+    test_three_interpolate_with_weights, test_fps_matches_scan_and_pallas,
+    test_fps_per_row_start_and_forced,
+)

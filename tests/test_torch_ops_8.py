@@ -1,0 +1,8 @@
+"""Part 8 of 8 of the tests in `torch_ops_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_ops_cases import (  # noqa: F401
+    test_fps_validates_inputs, test_fps_cuda_wrapper_refuses_cpu_tensors,
+    test_fps_cpu_path_counts_no_kernel_launch,
+)

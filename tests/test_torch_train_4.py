@@ -1,0 +1,7 @@
+"""Part 4 of 6 of the tests in `torch_train_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_train_cases import (  # noqa: F401
+    _one_torch_thread, test_fused_train_grads_match_jax_and_the_module,
+)

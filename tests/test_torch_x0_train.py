@@ -6,7 +6,7 @@ branch of `build_position_ddpm` and the x0 sampler of
 
 Tolerances: the schedule's coefficients 1e-7 (the same float64 numpy, cast
 to fp32); the forward diffusions 1e-6 on replayed noise; the losses rtol
-1e-5 and their gradients rtol 5e-3, atol 1e-4 (`tests/test_torch_train.py`'s);
+1e-5 and their gradients rtol 5e-3, atol 1e-4 (`tests/torch_train_cases.py`'s);
 one train step's loss rtol 1e-5 and its gradient, read as Adam's first
 moment (0.1 g), at rtol 5e-3, atol 1e-5."""
 

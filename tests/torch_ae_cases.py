@@ -40,6 +40,7 @@ from slide_tpu.train import checkpoint as jckpt
 from slide_tpu.train import driver as jdriver
 from slide_tpu_torch import data as tdata
 from slide_tpu_torch import models as tm
+from slide_tpu_torch.nn.modules import collect_neighbor_stats
 from slide_tpu_torch.configs import autoencoder_config
 from slide_tpu_torch.nn.pnet import PNet2Stage
 from slide_tpu_torch.ops import chamfer as tchamfer
@@ -150,14 +151,34 @@ def test_point_net_encoder_matches_jax(level):
 
 
 def test_encoder_rejects_unported_options():
-    # positional encoding is ported (tests/test_torch_conditional.py);
-    # neighbour statistics and global attention raise, naming their item
-    for key, value in (("record_neighbor_stats", True),
-                       ("global_attention_setting", {"use_global_attention_module": True})):
-        cfg = copy.deepcopy(autoencoder_config()["pointnet_config"]["encoder_config"])
-        cfg[key] = value
-        with pytest.raises(NotImplementedError, match=f"item 18.*{key}"):
-            tm.PointNetEncoder(cfg)
+    # no option is left unported: the small encoder with neighbour
+    # statistics and global attention after its first SA level builds and
+    # matches JAX, its sown statistics included
+    cfg = copy.deepcopy(small_ae_config()["encoder_config"])
+    cfg["record_neighbor_stats"] = True
+    cfg["global_attention_setting"] = {"use_global_attention_module": True,
+                                       "attention_bn": True, "last_activation": True,
+                                       "global_attention_layer_index": [0]}
+    x = _cloud(2)
+    label = np.array([0, 5], np.int32)
+    enc = tm.PointNetEncoder(cfg)
+    assert hasattr(enc.sa_modules_0, "global_attention")
+    jenc = JEncoder(cfg)
+    variables = jax.jit(lambda k: jenc.init(k, jnp.asarray(x), label=jnp.asarray(label)))(
+        jax.random.key(2))
+    params = perturb(variables["params"], 2)
+    (jfeat, _, _), sown = jax.jit(lambda p: jenc.apply(
+        {"params": p}, jnp.asarray(x), label=jnp.asarray(label),
+        mutable=["neighbor_stats"]))(params)
+    load_flax_params(enc, params)
+    with torch.no_grad():
+        tfeat, _, _ = enc(torch.as_tensor(x), label=torch.as_tensor(label))
+    assert_close(jfeat, tfeat, ENC_ATOL)
+    stats = collect_neighbor_stats(enc)
+    assert sorted(stats) == sorted(sown["neighbor_stats"])
+    for name, s in stats.items():
+        np.testing.assert_array_equal(to_np(s["quantile"]),
+                                      np.asarray(sown["neighbor_stats"][name]["quantile"][0]))
 
 
 def _chamfer_inputs():

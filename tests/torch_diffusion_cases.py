@@ -225,7 +225,7 @@ def test_x0_chain_with_the_latent_network():
 
 
 def test_unported_sampler_raises():
-    # FastDPM is ported (tests/test_torch_eval.py); an unknown sampler, and
+    # FastDPM is ported (tests/torch_eval_cases.py); an unknown sampler, and
     # FastDPM with a warm start, raise as in the JAX package
     sched = td.X0Schedule.from_config(_lat_sdc(5))
     with pytest.raises(ValueError, match="unknown sampler"):

@@ -16,8 +16,8 @@ Tolerances, each from a measurement (`pytest -rP` prints the gaps):
   - the autoencoder evaluation's pickles: AE_ATOL.
 The latent evaluation decodes with a closed form and the autoencoder
 evaluation runs a closed-form stand-in of the round trip: the decode and
-the round trip are held to JAX's in tests/test_torch_models.py and
-tests/test_torch_ae.py, and run by the port's hooks in
+the round trip are held to JAX's in tests/torch_models_cases.py and
+tests/torch_ae_cases.py, and run by the port's hooks in
 tests/test_torch_eval_hooks.py; here the evaluations' loaders, keypoints,
 draws, batching and files are.
   - the SAP grid L2 at 32^3: SAP_LOSS_RTOL relative (measured 1.0e-5)."""
@@ -472,7 +472,7 @@ def test_rank_files_gather_as_jax(tmp_path):
 
 def _j_decode(kp, feat, label, key):
     """A closed-form decode (the AE's decode is held to JAX's in
-    tests/test_torch_models.py): four points per keypoint."""
+    tests/torch_models_cases.py): four points per keypoint."""
     rep = jnp.concatenate([kp, jnp.tanh(feat[..., :3])], axis=-1)
     return jnp.tile(rep, (1, 4, 1)) * (1.0 + label[:, None, None])
 
@@ -525,7 +525,7 @@ def test_latent_generation_eval_matches_jax(tree, tmp_path):
 
 def _j_standin_ae():
     """A closed-form stand-in for the JAX autoencoder's `apply` (the round
-    trip itself is held to JAX's in tests/test_torch_ae.py): two levels and
+    trip itself is held to JAX's in tests/torch_ae_cases.py): two levels and
     their losses, and the keypoint feature."""
     class StandIn:
         def apply(self, variables, x, kp, *, label, loss_type, rngs,

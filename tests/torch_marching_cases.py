@@ -112,10 +112,11 @@ def test_host_marching_is_the_jax_one():
     for a, b in zip(marching.marching_tetrahedra_numpy(vols[0], 0.03),
                     j_marching.marching_tetrahedra_numpy(vols[0], 0.03)):
         np.testing.assert_array_equal(a, b)
-    # mc_from_psr: the numpy route, vertices scaled by 1/s or 1/(s - 1)
-    # (the JAX package's runs its native route, whose vertex order differs)
+    # mc_from_psr's numpy route, vertices scaled by 1/s or 1/(s - 1) (the
+    # native route's vertex order differs: tests/test_torch_native.py)
     for real_scale, div in ((False, 20.0), (True, 19.0)):
-        verts, faces, normals = marching.mc_from_psr(vols, real_scale=real_scale)
+        verts, faces, normals = marching.mc_from_psr(vols, real_scale=real_scale,
+                                                     native=False)
         for i in range(2):
             v, f, n = j_marching.marching_tetrahedra_numpy(vols[i])
             np.testing.assert_array_equal(verts[i], (v / div).astype(np.float32))

@@ -167,7 +167,7 @@ def train_sap_config():
     2.9e-2 (port) and 1.3e-2 (JAX) of its largest element from the port's
     float64 run, and still 4.7e-3 and 5.4e-3 at 64 channels; at 128 (groups
     of four) 5.4e-4 and 2.2e-3.  The four-level net is held to JAX in
-    tests/test_torch_sap.py; two levels halve JAX's compile of the step."""
+    tests/torch_sap_cases.py; two levels halve JAX's compile of the step."""
     cfg = narrow_sap_config()
     cfg["pointnet_config"]["architecture"].update(
         npoint=[96, 24], nsample=[8, 8], radius=[0.1, 0.2], feature_dim=[128] * 3,
