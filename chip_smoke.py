@@ -178,6 +178,34 @@ line each as soon as it ends:
            inputs of the first launch of each K1 and FPS shape of the
            phase are kept; after it (uncounted) each is held against its
            plain version: FPS indices equal, K1 within K1_ATOL
+  cli      the README's Quick start through the port's command line
+           (`slide_tpu_torch.cli.main([...])` in this process), the presets
+           written as JSON with `write_json_file`: `train` of the kp preset
+           on the tree, 5 steps; `generate` with the committed kp checkpoint,
+           16 samples at batch 16, T=1000 (exactly 1000 K1, a (16, 16, 3)
+           npz); `latent-generate` with the committed latent and AE
+           checkpoints on those keypoints (`--external_keypoint_file`:
+           exactly 1000 K1 and 9 FPS, points and normals (16, 2048, 3),
+           finite; the normals' norms, which the decode does not make unit);
+           `reconstruct` of those
+           clouds with the committed SAP checkpoint (4 FPS a batch of 8,
+           every mesh non-empty); `evaluate --all-metrics` of them against
+           the tree's val clouds (finite); `encode` then `decode` of those
+           val clouds with the AE checkpoint; seconds and launches per
+           subcommand (exact, CLI_LAUNCHES), the outputs' shapes
+  ddp      data-parallel training, two ranks as two processes of this
+           script (`--ddp-worker`) on the one card over gloo (passed
+           explicitly: NCCL refuses two ranks on one device), the kp
+           preset at a global batch of 32, 16 rows a rank: the first
+           step's all-reduced gradient against one process's step on the
+           32 rows with the same draws, per element (GRAD_RTOL /
+           GRAD_ATOL); `train_position_ddpm` warm-up and 20 counted steps
+           resumed from rank 0's checkpoint: the ranks' parameters
+           bit-equal, exactly 1 K1, 1 K2 and 1 FPS a step on each rank, each
+           K1 / K2 / FPS shape a rank launched (the new batch-16 ones
+           included) against its plain version; ms a step beside the
+           one-process step's at batch 32 (`train`); with two cards also
+           NCCL, one rank a card, else "not run: 1 card"
 
 Then the nvidia-smi line, one JSON line of kernel figures, and the last
 line {"ok": true, "device": {...}}.  Any failure raises and exits nonzero; a
@@ -388,6 +416,29 @@ ITEM18_RADIUS = [0.4, 0.8]
 # the host's marching tetrahedra on the counted pass's 128^3 grids: native
 # (threads) on all of them, native serial and numpy on MESH_SAMPLES
 MARCHING_THREADS = 8
+# the command line's Quick start (`phase_cli`): the kp preset's training
+# steps, the samples generated at one batch, and each subcommand's exact
+# launches: T K1 per chain; the decode's FPS calls; the SAP net's four a
+# batch of 8 (reconstruct's default batch); the keypoints (1), the encoder's
+# levels and the decode's calls a batch of 32 (encode's default batch)
+CLI_TRAIN_STEPS = 5
+CLI_SAMPLES = 16
+CLI_LAUNCHES = {
+    "train": {"fps": CLI_TRAIN_STEPS, "fused_denoiser": CLI_TRAIN_STEPS,
+              "fused_denoiser_bwd": CLI_TRAIN_STEPS},
+    "generate": {"fps": 0, "fused_denoiser": T_STEPS},
+    "latent-generate": {"fps": len(DECODE_FPS), "fused_denoiser": T_STEPS},
+    "reconstruct": {"fps": len(SAP_FPS) * -(-CLI_SAMPLES // 8), "fused_denoiser": 0},
+    "evaluate": {"fps": 0, "fused_denoiser": 0},
+    "encode": {"fps": 1 + len(ENCODER_FPS) + len(DECODE_FPS), "fused_denoiser": 0},
+    "decode": {"fps": len(DECODE_FPS), "fused_denoiser": 0},
+}
+# data-parallel training (`phase_ddp`): two ranks, the kp preset's global
+# batch of 32, a warm-up that writes a checkpoint, then counted steps
+DDP_WORLD = 2
+DDP_BATCH = 32
+DDP_WARMUP, DDP_STEPS = 3, 20
+DDP_TIMEOUT = 300
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -2004,11 +2055,12 @@ class KernelInputs:
     each shape, on those inputs, against its plain version."""
 
     def __init__(self):
-        self.fps, self.k1 = {}, {}
+        self.fps, self.k1, self.k2 = {}, {}, {}
 
     @contextlib.contextmanager
     def recording(self):
         real_fps, real_k1 = fps_mod.fps_cuda, fd.fused_forward_cuda
+        real_k2 = fd.fused_backward_cuda
 
         def fps(xyz, k, start, num_forced=0):
             key = (*xyz.shape, k, num_forced)
@@ -2022,15 +2074,25 @@ class KernelInputs:
                 self.k1[key] = (packed, pc.clone(), t4.clone(), cls.clone(), flat)
             return real_k1(packed, pc, t4, cls, flat)
 
-        fps_mod.fps_cuda, fd.fused_forward_cuda = fps, k1
+        def k2(packed, pc, t4, cls, g, flat=None):
+            key = tuple(pc.shape)
+            if key not in self.k2:
+                self.k2[key] = (packed, pc.clone(), t4.clone(), cls.clone(), g.clone(),
+                                None if flat is None else flat.clone())
+            return real_k2(packed, pc, t4, cls, g, flat)
+
+        fps_mod.fps_cuda, fd.fused_forward_cuda, fd.fused_backward_cuda = fps, k1, k2
         try:
             yield self
         finally:
             fps_mod.fps_cuda, fd.fused_forward_cuda = real_fps, real_k1
+            fd.fused_backward_cuda = real_k2
 
     def check(self, phase: str) -> float:
         """Each kept shape's kernel against its plain version: FPS indices
-        equal, K1 within K1_ATOL.  Returns K1's largest error."""
+        equal, K1 within K1_ATOL, K2 as `phase_k2` holds it (its plain
+        version in float64, the relu ties resolved as K2 did, K2_TOL).
+        Returns K1's largest error (K2's: `k2_err`)."""
         for (b, n, d, k, forced), (xyz, start) in sorted(self.fps.items()):
             got = fps_mod.fps_cuda(xyz, k, start, forced)
             want = fps_mod.fps_plain(xyz, k, start, forced)
@@ -2051,6 +2113,17 @@ class KernelInputs:
             if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
                 raise AssertionError(f"{phase}: K1 at {list(shape)}: kernel and plain "
                                      f"differ by {err}")
+        self.k2_err = 0.0
+        for shape, (packed, pc, t4, cls, g, flat) in sorted(self.k2.items()):
+            got = fd.fused_backward_cuda(packed, pc, t4, cls, g, flat)
+            want, ties = fd.fused_backward_reference(packed, pc, t4, cls, g, got, flat,
+                                                     tol=K2_TOL)
+            torch.cuda.synchronize()
+            errs = k2_errors(got, want)
+            self.k2_err = max([self.k2_err] + [e["max_abs"] for e in errs.values()])
+            log(f"{phase}_k2", shape=list(shape), err=errs, ties=ties)
+            if not all(e["ok"] for e in errs.values()):
+                raise AssertionError(f"{phase}: K2 at {list(shape)} differs from plain: {errs}")
         return max_err
 
 
@@ -2260,7 +2333,252 @@ def run_evals(dev, root: str, sap_root: str, tmp: str, x0: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The command line and data-parallel training
+
+
+def _cli_npz_shapes(path: str) -> dict:
+    with np.load(path) as d:
+        return {k: list(d[k].shape) for k in d.files}
+
+
+def phase_cli(dev, root: str, tmp: str) -> dict:
+    """The README's Quick start through the port's command line
+    (`slide_tpu_torch.cli.main`, in this process) at full width with the
+    committed checkpoints: the presets written with `write_json_file`, then
+    `train` (the kp preset, CLI_TRAIN_STEPS steps), `generate` (CLI_SAMPLES
+    keypoint sets at batch CLI_SAMPLES, T=1000), `latent-generate` on those
+    keypoints, `reconstruct` of its clouds, `evaluate --all-metrics` of them
+    against the tree's val clouds, `encode` and `decode` of those.  Each
+    subcommand's seconds, launches (exactly CLI_LAUNCHES), outputs' shapes."""
+    from slide_tpu_torch.cli.main import main as cli
+    from slide_tpu_torch.config import write_json_file
+    base = os.path.join(tmp, "cli")
+    os.makedirs(base)
+    cfgs = {"kp": _task_config(keypoint_ddpm_config("airplane"), root, os.path.join(base, "exp")),
+            "lat": _task_config(latent_ddpm_config("airplane"), root, base),
+            "ae": _task_config(autoencoder_config("airplane"), root, base),
+            "sap": upsampler_config()}
+    paths = {}
+    for name, cfg in cfgs.items():
+        paths[name] = os.path.join(base, f"{name}_config.json")
+        write_json_file(paths[name], cfg, reference_style=True)
+    # the reference clouds: the tree's val split, points, normals and labels
+    refs = next(iter(get_dataloader(dict(cfgs["lat"]["shapenet_psr_dataset_config"],
+                                         eval_batch_size=CLI_SAMPLES, repeat_dataset=1),
+                                    phase="val", seed=0)))
+    ref_npz = os.path.join(base, "val_clouds.npz")
+    np.savez(ref_npz, points=refs["points"], normals=refs["normals"],
+             label=np.asarray(refs["label"]))
+    kp_npz = os.path.join(base, "gen", "shapenet_psr_generated_data_16_pts.npz")
+    lat_npz = os.path.join(base, "lat", "shapenet_psr_generated_data_2048_pts.npz")
+    enc_npz = os.path.join(base, "enc", "autoencoder_reconstruction.npz")
+    n = str(CLI_SAMPLES)
+    runs = [
+        ("train", ["train", "-c", paths["kp"], "--max_iters", str(CLI_TRAIN_STEPS)]),
+        ("generate", ["generate", "-c", paths["kp"], "--ckpt", str(DEFAULT_CKPTS["kp"]),
+                      "--num_samples", n, "--batch_size", n,
+                      "--save_dir", os.path.dirname(kp_npz)]),
+        ("latent-generate", ["latent-generate", "-c", paths["lat"],
+                             "--ckpt", str(DEFAULT_CKPTS["lat"]),
+                             "--ae_ckpt", str(DEFAULT_CKPTS["ae"]), "--num_samples", n,
+                             "--batch_size", n, "--external_keypoint_file", kp_npz,
+                             "--save_dir", os.path.dirname(lat_npz)]),
+        ("reconstruct", ["reconstruct", "-c", paths["sap"], "--ckpt", str(DEFAULT_CKPTS["sap"]),
+                         "--dataset_path", lat_npz, "--save_dir", os.path.join(base, "rec")]),
+        ("evaluate", ["evaluate", "--gen", lat_npz, "--ref", ref_npz, "--all-metrics",
+                      "--out", os.path.join(base, "metrics.json")]),
+        ("encode", ["encode", "-c", paths["ae"], "--ckpt", str(DEFAULT_CKPTS["ae"]),
+                    "--dataset_path", ref_npz, "--save_dir", os.path.dirname(enc_npz),
+                    "--save_keypoint_feature"]),
+        ("decode", ["decode", "-c", paths["ae"], "--ckpt", str(DEFAULT_CKPTS["ae"]),
+                    "--dataset_path", enc_npz, "--save_dir", os.path.join(base, "dec")]),
+    ]
+    res, outs = {}, {}
+    for name, argv in runs:
+        _build.launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[name] = cli(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {k: _build.launch_counts.get(k, 0) for k in CLI_LAUNCHES[name]}
+        res[name] = {"seconds": seconds, "launches": launches}
+        if launches != CLI_LAUNCHES[name]:
+            raise AssertionError(f"cli {name}: launches {launches}, expected "
+                                 f"{CLI_LAUNCHES[name]}")
+
+    # the outputs
+    state, losses = outs["train"]
+    kp, lat = _cli_npz_shapes(kp_npz), _cli_npz_shapes(lat_npz)
+    with np.load(lat_npz) as d:
+        points, normals = d["points"], d["normals"]
+    norms = np.linalg.norm(normals, axis=-1)
+    meshes = sorted(os.listdir(os.path.join(outs["reconstruct"], "reconstructed_mesh")))
+    metrics = outs["evaluate"]
+    enc = _cli_npz_shapes(outs["encode"])
+    dec = _cli_npz_shapes(outs["decode"])
+    checks = {
+        "train": state.step == CLI_TRAIN_STEPS and bool(np.isfinite([l for _, l in losses]).all()),
+        "generate": kp["points"] == [CLI_SAMPLES, 16, 3],
+        "latent": lat["points"] == lat["normals"] == [CLI_SAMPLES, 2048, 3]
+        and bool(np.isfinite(points).all()),
+        # the decode's normals as the AE gives them (not unit: `reconstruct`
+        # normalises them, as the JAX package's does)
+        "normals": bool(np.isfinite(normals).all() and (norms > 0).all()),
+        "meshes": len(meshes) == CLI_SAMPLES,
+        "metrics": bool(np.isfinite(list(metrics.values())).all()),
+        "encode": enc["points"] == [CLI_SAMPLES, 2048, 6]
+        and enc["keypoint_feature"][:2] == [CLI_SAMPLES, 16],
+        "decode": dec["points"] == [CLI_SAMPLES, 2048, 6],
+    }
+    log("cli", subcommands=res, shapes={"generate": kp, "latent-generate": lat,
+                                        "encode": enc, "decode": dec},
+        normal_norms=[float(norms.min()), float(norms.max())], meshes=len(meshes),
+        metrics=metrics, train_losses=losses, checks=checks)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"cli: failed {bad}")
+    return {name: r["launches"] for name, r in res.items()}
+
+
+def _ddp_config(root: str, exp: str) -> dict:
+    return _task_config(keypoint_ddpm_config("airplane", batch_size=DDP_BATCH), root, exp)
+
+
+def ddp_worker(rank: str, world: str, coord: str, backend: str, root: str, tmp: str) -> None:
+    """One rank of the `ddp` phase, a process of its own: joins the group
+    over `backend`; the first step's all-reduced gradient (16 rows here)
+    against one process's step on all DDP_BATCH rows with the same draws,
+    per element (rank 0); a warm-up of `train_position_ddpm` (rank 0 writes
+    its checkpoint), then DDP_STEPS counted steps resumed from it: ms a
+    step, launches, the parameters' digest; every K1, K2 and K3 shape the
+    rank launched held against its plain version.  Writes
+    <tmp>/ddp_<backend>_rank<r>.json."""
+    from ddp_worker import digest, step_gap
+    from slide_tpu_torch.parallel import maybe_initialize_distributed
+    rank, world = int(rank), int(world)
+    maybe_initialize_distributed(coord, world, rank, backend=backend)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = _ddp_config(root, os.path.join(tmp, f"exp_ddp_{backend}"))
+    inputs = KernelInputs()
+    out = {"rank": rank, "device": str(dev)}
+    batch = _first_batch(cfg, dev)
+    with inputs.recording():
+        res = step_gap(lambda: train_driver.build_position_ddpm(cfg, seed=0, device=dev),
+                       batch, rank, world)
+    if rank == 0:
+        beyond, worst = 0, 0.0
+        for a, b in zip(res["grads"], res["ref_grads"]):
+            beyond += int(((a - b).abs() > GRAD_ATOL + GRAD_RTOL * b.abs()).sum())
+            worst = max(worst, float((a - b).abs().max()))
+        out["gradient"] = {"beyond": beyond, "max_abs_err": worst,
+                           "max_abs_grad": max(float(g.abs().max()) for g in res["ref_grads"]),
+                           "loss": res["loss"], "one_process_loss": res["ref_loss"]}
+    out["step_digest"] = res["digest"]
+    del res
+    train_driver.train_position_ddpm(cfg, max_iters=DDP_WARMUP, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    with inputs.recording():
+        t0 = time.perf_counter()
+        state, losses = train_driver.train_position_ddpm(cfg, max_iters=DDP_WARMUP + DDP_STEPS,
+                                                         device=dev, verbose=False)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    out.update(launches=dict(_build.launch_counts), ms_per_step=1e3 * seconds / DDP_STEPS,
+               losses=losses, step=state.step, digest=digest(state.net))
+    out["k1_err"] = inputs.check(f"ddp_{backend}_rank{rank}")
+    out["k2_err"] = inputs.k2_err
+    out["k1_shapes"] = sorted(list(s) for s in inputs.k1)
+    out["k2_shapes"] = sorted(list(s) for s in inputs.k2)
+    with open(os.path.join(tmp, f"ddp_{backend}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_ddp_ranks(backend: str, root: str, tmp: str) -> list:
+    """DDP_WORLD processes of `ddp_worker` joined at a free local port; each
+    rank's result.  Their output goes to <tmp>/ddp_<backend>_rank<r>.log,
+    whose end is printed if a rank fails."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [os.path.join(tmp, f"ddp_{backend}_rank{r}.log") for r in range(DDP_WORLD)]
+    procs = []
+    for r in range(DDP_WORLD):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--ddp-worker", str(r),
+                 str(DDP_WORLD), f"127.0.0.1:{port}", backend, root, tmp],
+                stdout=f, stderr=subprocess.STDOUT))
+    try:
+        codes = [p.wait(timeout=DDP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, code in enumerate(codes):
+        with open(logs[r]) as f:
+            tail = f.read()[-3000:]
+        if code != 0:
+            raise AssertionError(f"ddp {backend} rank {r} exited {code}:\n{tail}")
+    results = []
+    for r in range(DDP_WORLD):
+        with open(os.path.join(tmp, f"ddp_{backend}_rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def check_ddp(backend: str, ranks: list, one_process_ms: float) -> dict:
+    grad = ranks[0]["gradient"]
+    per_step = {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1}
+    checks = {
+        "gradient": grad["beyond"] == 0,
+        "step_params_equal": len({r["step_digest"] for r in ranks}) == 1,
+        "params_equal": len({r["digest"] for r in ranks}) == 1,
+        "losses_equal": all(r["losses"] == ranks[0]["losses"] for r in ranks),
+        "launches": all(r["launches"].get(k, 0) == n * DDP_STEPS
+                        for r in ranks for k, n in per_step.items()),
+        "batch16_shapes": all([DDP_BATCH // DDP_WORLD, 16, 3] in r["k1_shapes"]
+                              and [DDP_BATCH // DDP_WORLD, 16, 3] in r["k2_shapes"]
+                              for r in ranks),
+        "steps": all(r["step"] == DDP_WARMUP + DDP_STEPS for r in ranks),
+    }
+    log(f"ddp_{backend}", world=DDP_WORLD, batch=DDP_BATCH, rows_per_rank=DDP_BATCH // DDP_WORLD,
+        steps=DDP_STEPS, gradient=grad, grad_rtol=GRAD_RTOL, grad_atol=GRAD_ATOL,
+        devices=[r["device"] for r in ranks],
+        ms_per_step=[r["ms_per_step"] for r in ranks], one_process_ms_per_step=one_process_ms,
+        launches=[r["launches"] for r in ranks], launches_per_step_expected=per_step,
+        k1_err=max(r["k1_err"] for r in ranks), k2_err=max(r["k2_err"] for r in ranks),
+        k1_shapes=ranks[0]["k1_shapes"], k2_shapes=ranks[0]["k2_shapes"],
+        first_loss=ranks[0]["losses"][0], last_loss=ranks[0]["losses"][-1], checks=checks)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"ddp_{backend}: failed {bad}")
+    return {"launches_per_rank": ranks[0]["launches"], "ms_per_step": ranks[0]["ms_per_step"],
+            "k1_err": max(r["k1_err"] for r in ranks), "k2_err": max(r["k2_err"] for r in ranks)}
+
+
+def phase_ddp(root: str, tmp: str, one_process_ms: float) -> dict:
+    """Data-parallel training on the card: DDP_WORLD ranks as processes on
+    the one card over gloo (its all-reduce goes through the host), then,
+    where the machine has as many cards, one rank a card over NCCL."""
+    torch.cuda.empty_cache()
+    res = {"gloo": check_ddp("gloo", run_ddp_ranks("gloo", root, tmp), one_process_ms)}
+    if torch.cuda.device_count() >= DDP_WORLD:
+        res["nccl"] = check_ddp("nccl", run_ddp_ranks("nccl", root, tmp), one_process_ms)
+    else:
+        log("ddp_nccl", nccl=f"not run: {torch.cuda.device_count()} card")
+    return res
+
+
 def main():
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(*sys.argv[2:])
+        return
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
@@ -2320,6 +2638,15 @@ def main():
         phase_item18_forward(dev, root)
         phase_train_bf16(dev, root, tmp)
         evals, eval_k1_err = phase_eval(dev, root, sap_root, tmp, tasks["x0"])
+        cli = phase_cli(dev, root, tmp)
+        ddp = phase_ddp(root, tmp, tasks["kp"]["ms_per_step"])
+
+    def per_cli(name):
+        return {sub: launches.get(name, 0) for sub, launches in cli.items()}
+
+    def per_rank_step(name):
+        return {backend: res["launches_per_rank"].get(name, 0) / DDP_STEPS
+                for backend, res in ddp.items()}
 
     def per_task(name):
         return {task: res["launches"].get(name, 0) for task, res in tasks.items()}
@@ -2353,7 +2680,8 @@ def main():
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "launches_train": per_task("fps"),
-        "launches_eval": per_eval("fps"),
+        "launches_eval": per_eval("fps"), "launches_cli": per_cli("fps"),
+        "launches_ddp_per_rank_step": per_rank_step("fps"),
         "decode_ms": fps_sum(DECODE_FPS, BATCH)[0],
         "sap_ms": fps_sum(SAP_FPS, BATCH)[0], "sap_plain_ms": fps_sum(SAP_FPS, BATCH)[1],
         "sap_bound_ms": fps_sum(SAP_FPS, BATCH)[2][0],
@@ -2367,7 +2695,8 @@ def main():
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
         "launches": launches.get("fused_denoiser", 0),
-        "max_abs_err": max(k1_err, eval_k1_err, tasks["x0"]["k1_err"]),
+        "max_abs_err": max(k1_err, eval_k1_err, tasks["x0"]["k1_err"],
+                           *(res["k1_err"] for res in ddp.values())),
         "ms": sum(r[0] for r in nets) / 2, "plain_ms": sum(r[1] for r in nets) / 2,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
         "module_ms": sum(r[2] for r in nets) / 2,
@@ -2375,14 +2704,18 @@ def main():
                            "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1]}
                     for name, r in zip(("kp", "lat"), nets)},
         "launches_train": per_task("fused_denoiser"),
-        "launches_eval": per_eval("fused_denoiser")}, {
+        "launches_eval": per_eval("fused_denoiser"), "launches_cli": per_cli("fused_denoiser"),
+        "launches_ddp_per_rank_step": per_rank_step("fused_denoiser")}, {
         "name": "fused_denoiser_bwd", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser_bwd.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:621",
         "launches": tasks["kp"]["launches"].get("fused_denoiser_bwd", 0),
-        "max_abs_err": k2_err, "ms": k2_main[0], "plain_ms": k2_main[1],
+        "max_abs_err": max(k2_err, *(res["k2_err"] for res in ddp.values())),
+        "ms": k2_main[0], "plain_ms": k2_main[1],
         "bound_ms": bound(k2_main[2])[0], "bound_by": bound(k2_main[2])[1],
         "library_ms": None, "launches_train": per_task("fused_denoiser_bwd"),
+        "launches_cli": per_cli("fused_denoiser_bwd"),
+        "launches_ddp_per_rank_step": per_rank_step("fused_denoiser_bwd"),
         "per_net": {f"{name}_b{b}": {"ms": r[0], "plain_ms": r[1],
                                      "bound_ms": bound(r[2])[0], "bound_by": bound(r[2])[1]}
                     for (name, b), r in k2.items()}}]}), flush=True)

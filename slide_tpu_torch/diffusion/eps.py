@@ -14,6 +14,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from slide_tpu_torch.parallel.sharded import batch_randint, batch_randn
+
 NoiseFn = Callable[[Sequence[int]], torch.Tensor]
 
 
@@ -54,11 +56,9 @@ def diffusion_training_loss(net_fn: Callable, x0: torch.Tensor, sched: Diffusion
     test hands in the JAX draws)."""
     b = x0.shape[0]
     if ts is None:
-        ts = torch.randint(0, sched.T, (b,), generator=generator,
-                           device=generator.device).to(x0.device)
+        ts = batch_randint(sched.T, (b,), generator).to(x0.device)
     if z is None:
-        z = torch.randn(x0.shape, generator=generator, device=generator.device,
-                        dtype=x0.dtype).to(x0.device)
+        z = batch_randn(x0.shape, generator, dtype=x0.dtype).to(x0.device)
     abar = sched.alpha_bar.to(x0.device)[ts.long()].reshape((b,) + (1,) * (x0.ndim - 1))
     x_t = torch.sqrt(abar) * x0 + torch.sqrt(1.0 - abar) * z
     eps_hat = net_fn(x_t, ts)

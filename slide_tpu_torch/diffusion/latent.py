@@ -14,6 +14,7 @@ import torch
 
 from slide_tpu_torch.diffusion.eps import NoiseFn
 from slide_tpu_torch.diffusion.x0 import X0Schedule, _bc, x0_denoise
+from slide_tpu_torch.parallel.sharded import batch_randint, batch_randn
 
 
 def latent_config_weights(config: dict) -> tuple[float, float]:
@@ -47,11 +48,9 @@ def latent_train_loss(net_fn: Callable, encode_fn: Callable, x: torch.Tensor,
         latent = latent_encode(encode_fn, x, keypoint, label)
     b, kp_dim = latent.shape[0], keypoint.shape[-1]
     if ts is None:
-        ts = torch.randint(0, sched.T, (b,), generator=generator,
-                           device=generator.device).to(latent.device)
+        ts = batch_randint(sched.T, (b,), generator).to(latent.device)
     if z is None:
-        z = torch.randn(latent.shape, generator=generator, device=generator.device,
-                        dtype=latent.dtype).to(latent.device)
+        z = batch_randn(latent.shape, generator, dtype=latent.dtype).to(latent.device)
     abar = _bc(sched.alphas_cumprod.to(latent.device), ts, latent.ndim)
     x_t = torch.sqrt(abar) * latent + torch.sqrt(1.0 - abar) * z
     if keypoint_conditional:

@@ -18,6 +18,7 @@ import torch
 
 from slide_tpu_torch.diffusion.eps import NoiseFn
 from slide_tpu_torch.ops.chamfer import calc_cd
+from slide_tpu_torch.parallel.sharded import batch_randint, batch_randn
 
 
 def _warmup_beta(beta_start, beta_end, t, frac):
@@ -196,11 +197,9 @@ def x0_training_loss(net_fn: Callable, x: torch.Tensor, sched: X0Schedule,
         raise ValueError(f"loss type {loss_type} is not supported")
     b = x.shape[0]
     if ts is None:
-        ts = torch.randint(0, sched.T, (b,), generator=generator,
-                           device=generator.device).to(x.device)
+        ts = batch_randint(sched.T, (b,), generator).to(x.device)
     if z is None:
-        z = torch.randn(x.shape, generator=generator, device=generator.device,
-                        dtype=x.dtype).to(x.device)
+        z = batch_randn(x.shape, generator, dtype=x.dtype).to(x.device)
     abar = _bc(sched.alphas_cumprod, ts, x.ndim)
     x_t = torch.sqrt(abar) * x + torch.sqrt(1.0 - abar) * z
     model_output = net_fn(x_t, ts) * sched.model_output_scale_factor

@@ -16,10 +16,20 @@ chain (`conditioned_net_fn`).  Every draw comes from one generator
 seeded with `seed + rank`, or from the caller's `noise_fn(shape)` (normal
 draws, in the JAX package's order: a batch's keypoint noise, then its
 chain) and `start_fn(b, n)` (the decode's FPS starts).
+
+`mesh=[device, ...]` (the counterpart of the JAX package's device mesh)
+spreads a position chain over several devices of this process: each loader
+batch, padded with its last row to a multiple of the devices, is split in
+row blocks, one a device, and every step evaluates the denoiser (a copy on
+each device, fused where in scope: K1 on each card) on its block; the
+chain's own arithmetic and its draws, the whole batch's, stay on the first
+device, so the samples are the one-device run's.  `visualize=True` dumps
+the written file as .xyz files (`vis/pcd.py`) when `world_size == 1`.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Callable, Optional
@@ -35,6 +45,7 @@ from slide_tpu_torch.models import ConditionalPointNet2
 from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn
 from slide_tpu_torch.ops import sample_keypoints
 from slide_tpu_torch.pipeline import resolve_device, seeded_draws
+from slide_tpu_torch.vis.pcd import visualize_pcd
 
 TASKS = ("generation", "keypoint_generation", "keypoint_conditional_generation",
          "latent_generation", "latent_keypoint_conditional_generation")
@@ -68,6 +79,35 @@ def conditioned_net_fn(net, label: torch.Tensor, condition: Optional[torch.Tenso
         cache = net.encode_condition(condition)
         return lambda x, ts: net(x, ts=ts, label=label, cond_cache=cache)
     return lambda x, ts: net(x, ts=ts, label=label, condition=condition)
+
+
+def _mesh_net_fn(replicas: list, label: torch.Tensor,
+                 condition: Optional[torch.Tensor]) -> Callable:
+    """A chain's `net_fn(x, ts)` over `replicas`, [(device, net, fused_fn),
+    ...]: the rows padded with the last one to a multiple of the devices,
+    one block a device (its condition encoded there once), each block's
+    output brought back to x's device in row order."""
+    b, n_dev = label.shape[0], len(replicas)
+    per = -(-b // n_dev)
+
+    def pad(t):
+        return torch.cat([t, t[-1:].expand(per * n_dev - b, *t.shape[1:])])
+
+    label_p = pad(label)
+    cond_p = None if condition is None else pad(condition)
+    blocks = []
+    for i, (d, net, fused_fn) in enumerate(replicas):
+        rows = slice(i * per, (i + 1) * per)
+        blocks.append((d, rows, conditioned_net_fn(
+            net, label_p[rows].to(d), None if cond_p is None else cond_p[rows].to(d),
+            fused_fn)))
+
+    def net_fn(x, ts):
+        xp, tsp = pad(x), pad(ts)
+        outs = [fn(xp[rows].to(d), tsp[rows].to(d)) for d, rows, fn in blocks]
+        return torch.cat([o.to(x.device) for o in outs])[:b]
+
+    return net_fn
 
 
 def _loader(trainset_config: dict, conditional: bool, rank: int, world_size: int, seed: int,
@@ -107,7 +147,7 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
                       sampler: str = "ddpm", fastdpm_kw: Optional[dict] = None,
                       fused: bool = True, device=None,
                       noise_fn: Optional[Callable] = None,
-                      start_fn: Optional[Callable] = None) -> str:
+                      start_fn: Optional[Callable] = None, visualize: bool = False) -> str:
     """Sample and write this rank's npz; returns its path.
 
     `net` is the denoiser module (its weights loaded), `sched` its
@@ -121,12 +161,12 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
     local_resampling: with complete_x0 (B, K, 3 + F) and keypoint_mask (B,
     K), only the masked keypoints' latents are sampled anew; rows are taken
     in loader order from this rank's first global row.  Requires a latent
-    sampler."""
+    sampler.
+    mesh: a sequence of devices over which each position chain's denoiser
+    runs in row blocks (the draws and the chain on the first; `device` is
+    then not used).  The latent and custom samplers run on the first."""
     if task not in TASKS:
         raise ValueError(task)
-    if mesh is not None:
-        raise NotImplementedError("generation over several devices: not ported yet "
-                                  "(ROADMAP Queue A, item 19)")
     if local_resampling:
         if latent_sampler is None:
             raise ValueError("local_resampling requires a latent task/sampler")
@@ -136,7 +176,8 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
         raise ValueError("only shapenet_psr_dataset is supported")
     conditional = task in ("keypoint_conditional_generation",
                            "latent_keypoint_conditional_generation")
-    dev = resolve_device(device)
+    devices = [resolve_device(d) for d in mesh] if mesh is not None else None
+    dev = devices[0] if devices else resolve_device(device)
     num_points = trainset_config["num_keypoints"] if task == "keypoint_generation" \
         else trainset_config["npoints"]
     os.makedirs(save_dir, exist_ok=True)
@@ -146,13 +187,21 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
 
     _, noise_fn, start_fn = seeded_draws(dev, seed + rank, noise_fn, start_fn)
 
-    fused_fn = None
-    if fused and latent_sampler is None and custom_sampler is None \
-            and isinstance(net, ConditionalPointNet2):
-        fused_fn = make_fused_net_fn(net.config, net, num_points)
+    use_fused = fused and latent_sampler is None and custom_sampler is None \
+        and isinstance(net, ConditionalPointNet2)
+    fused_fn = make_fused_net_fn(net.config, net, num_points) \
+        if use_fused and not devices else None
+    replicas = []
+    for d in devices or ():
+        net_d = copy.deepcopy(net).to(d)
+        replicas.append((d, net_d, make_fused_net_fn(net.config, net_d, num_points)
+                         if use_fused else None))
 
     def sample(label, condition):
-        net_fn = conditioned_net_fn(net, label, condition, fused_fn)
+        if replicas:
+            net_fn = _mesh_net_fn(replicas, label, condition)
+        else:
+            net_fn = conditioned_net_fn(net, label, condition, fused_fn)
         shape = (label.shape[0], num_points, point_feature_dim)
         if sampler == "fastdpm":
             return fast_sampling(net_fn, shape, sched, diffusion_config_of(sched), noise_fn,
@@ -232,6 +281,8 @@ def evaluate_per_rank(net, trainset_config: dict, sched, save_dir: str, task: st
     avg = result["timing"].sum() / result["points"].shape[0]
     print(f"Generated samples saved to {save_file}; avg per-sample time {avg:.4f}s",
           flush=True)
+    if visualize and world_size == 1:
+        visualize_pcd(save_file)
     return save_file
 
 

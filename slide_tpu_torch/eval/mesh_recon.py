@@ -14,12 +14,12 @@ caller passes "cpu"; the SAP net's SA levels run K3 there, the extraction
 is `sap/marching_gpu.py`); the meshes then come to the host
 (`mesh_to_host`), where one worker thread writes batch i's files while the
 device runs batch i + 1.  The JAX package's float16 transfer of the grids
-is not ported: it serves a TPU behind a remote link.  The mirror's
-permutation of n points comes from one generator seeded with `seed`
-(+ rank), or from the caller's `perm_fn(n)`.  The JAX package's
-autoencoder round trip in front of the net (`ae_fns`, `noise_magnitude`)
-and its `label_number` / `explicit_normalize` options are not ported: no
-caller of the port sets them.
+is not ported: it serves a TPU behind a remote link.  `reconstruct_meshes`
+can put an autoencoder's round trip in front of the net (`ae_fns`, then
+`noise_magnitude` gaussian noise).  The draws (the round trip's, the
+noise, the mirror's permutation of n points, in that order) come from one
+generator seeded with `seed` (+ rank), or from the caller's
+`noise_fn(shape)` and `perm_fn(n)`.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from slide_tpu_torch.ops import sample_keypoints
 from slide_tpu_torch.pipeline import resolve_device
 from slide_tpu_torch.sap import (compute_center_and_max_length, marching_tetrahedra_device,
                                  mesh_to_host, mirror_and_concat,
@@ -42,20 +43,26 @@ from slide_tpu_torch.sap.mesh_sampling import (sample_points_from_mesh,
 from slide_tpu_torch.vis.ply import batch_save_pcd, save_mesh_ply
 
 
-def _perm_draws(dev, seed: int, perm_fn):
-    """The mirror's permutation `perm_fn(n)`: the caller's, or drawn from a
+def _draws(dev, seed: int, perm_fn, noise_fn=None):
+    """(perm_fn(n), noise_fn(shape)): the caller's, or drawn from one
     generator on `dev` seeded with `seed`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     if perm_fn is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-
         def perm_fn(n):
             return torch.randperm(n, generator=gen, device=dev)
-    return perm_fn
+    if noise_fn is None:
+        def noise_fn(shape):
+            return torch.randn(tuple(shape), generator=gen, device=dev)
+    return perm_fn, noise_fn
 
 
-def _prepare_sap_input(data, trainset_config, dpsr_config, dev, perm_fn):
-    """The net's input: points | unit normals (or zeros), then the mirror
-    with its +1 / -1 tags."""
+def _prepare_sap_input(data, trainset_config, dpsr_config, dev, perm_fn, *,
+                       ae_fns: Optional[Callable] = None, noise_magnitude: float = 0.0,
+                       noise_fn: Optional[Callable] = None):
+    """The net's input: points | unit normals (or zeros), optionally the
+    autoencoder's round trip `ae_fns(x, keypoint, label, noise_fn)` on the
+    cloud's FPS keypoints (the centroid first) and `noise_magnitude` noise,
+    then the mirror with its +1 / -1 tags."""
     x = torch.as_tensor(data["points"], dtype=torch.float32, device=dev)
     label = torch.as_tensor(np.asarray(data["label"]), dtype=torch.int64, device=dev)
     if trainset_config.get("include_normals", True):
@@ -64,6 +71,12 @@ def _prepare_sap_input(data, trainset_config, dpsr_config, dev, perm_fn):
         x = torch.cat([x, normals], dim=-1)
     else:
         x = torch.cat([x, torch.zeros_like(x)], dim=-1)
+    if ae_fns is not None:
+        keypoint, _ = sample_keypoints(x[..., :3], trainset_config["num_keypoints"],
+                                       add_centroid=True)
+        x = ae_fns(x, keypoint, label, noise_fn)
+        if noise_magnitude > 0:
+            x = x + noise_magnitude * noise_fn(x.shape).to(x.device)
     if dpsr_config.get("mirror_before_upsampling", False):
         permute = not dpsr_config.get("only_original_points_split", False)
         x = mirror_and_concat(x, axis=2, attach_label=True, permute=permute,
@@ -84,7 +97,7 @@ def sap_grid_eval(net, dpsr, loader, pointnet_config: dict, dpsr_config: dict,
     dev = resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     save_file = os.path.join(save_dir, save_file_name)
-    perm_fn = _perm_draws(dev, seed, perm_fn)
+    perm_fn, _ = _draws(dev, seed, perm_fn)
     total, count = 0.0, 0
     for data in loader:
         x, label = _prepare_sap_input(data, trainset_config, dpsr_config, dev, perm_fn)
@@ -152,14 +165,25 @@ def reconstruct_meshes(net, dpsr, loader, pointnet_config: dict, dpsr_config: di
                        trainset_config: dict, save_dir: str, *, iteration: int = 0,
                        epoch: int = 0, scale: float = 1, seed: int = 0, rank: int = 0,
                        do_sample_points_from_mesh: bool = False,
-                       return_original_scale: bool = False, device=None,
-                       perm_fn: Optional[Callable] = None) -> str:
+                       explicit_normalize: bool = False,
+                       return_original_scale: bool = False,
+                       label_number: Optional[int] = None,
+                       ae_fns: Optional[Callable] = None, noise_magnitude: float = 0.0,
+                       device=None, perm_fn: Optional[Callable] = None,
+                       noise_fn: Optional[Callable] = None) -> str:
     """The whole reconstruction path.  Writes under
     <save_dir>/visualization_results_at_iteration_<it>_epoch_<ep>/ the
     noisy and refined clouds (noisy_pcd/, refined_pcd/), the meshes
     (reconstructed_mesh/) and, with `do_sample_points_from_mesh`,
     points_sampled_from_mesh.npz and uniform_points_sampled_from_mesh.npz
-    (points, normals, label).  Returns that directory."""
+    (points, normals, label).  Returns that directory.
+
+    label_number: the class of every shape of a loader whose batches carry
+    no label.  explicit_normalize: the split cloud's normals normalised
+    before DPSR (`network_output_to_dpsr_grid`).  ae_fns(x, keypoint,
+    label, noise_fn) -> x: an autoencoder's round trip on each cloud first
+    (its keypoints FPS of the cloud with the centroid first), then
+    `noise_magnitude` noise."""
     dev = resolve_device(device)
     vis_dir = os.path.join(save_dir, "visualization_results_at_iteration_%s_epoch_%s"
                            % (str(iteration).zfill(8), str(epoch).zfill(4)))
@@ -174,7 +198,7 @@ def reconstruct_meshes(net, dpsr, loader, pointnet_config: dict, dpsr_config: di
     result = {k: [] for k in ("points", "normals", "uniform_points", "uniform_normals",
                               "label")}
     mirror_first = dpsr_config.get("mirror_before_upsampling", False)
-    perm_fn = _perm_draws(dev, seed + rank, perm_fn)
+    perm_fn, noise_fn = _draws(dev, seed + rank, perm_fn, noise_fn)
     per_rank = getattr(loader.dataset, "num_samples_per_rank", len(loader.dataset))
 
     def drain(futures):
@@ -185,14 +209,20 @@ def reconstruct_meshes(net, dpsr, loader, pointnet_config: dict, dpsr_config: di
     with ThreadPoolExecutor(max_workers=1) as executor:
         futures: deque = deque()
         for batch_idx, data in enumerate(loader):
+            if "label" not in data:
+                data = dict(data, label=np.full(np.asarray(data["points"]).shape[0],
+                                                label_number, np.int64))
             orig = torch.as_tensor(data["points"], dtype=torch.float32, device=dev)
             center, max_len = compute_center_and_max_length(orig)
-            x, label = _prepare_sap_input(data, trainset_config, dpsr_config, dev, perm_fn)
+            x, label = _prepare_sap_input(data, trainset_config, dpsr_config, dev, perm_fn,
+                                          ae_fns=ae_fns, noise_magnitude=noise_magnitude,
+                                          noise_fn=noise_fn)
             disp = net(x, ts=None, label=label)
             grid, refined_p, refined_n = network_output_to_dpsr_grid(
                 x, disp, dpsr, scale, pointnet_config, last_dim_as_indicator=mirror_first,
                 only_original_points_split=dpsr_config.get("only_original_points_split",
-                                                           False))
+                                                           False),
+                explicit_normalize=explicit_normalize)
             grid_mesh = marching_tetrahedra_device(grid)
             grid_mesh["corner_pos"] = grid_mesh["corner_pos"] / float(grid.shape[-1])
             start_idx = per_rank * rank + loader.batch_size * batch_idx

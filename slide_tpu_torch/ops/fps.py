@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from slide_tpu_torch import _build
+from slide_tpu_torch.parallel.sharded import batch_randint
 
 # one block holds the cloud (D x N floats) in shared memory and at most
 # 32 points per thread in registers (csrc/fps.cu)
@@ -161,8 +162,7 @@ def sample_keypoints(xyz: torch.Tensor, k: int, *, add_centroid: bool = True,
         return _take(full, idx), idx
     if generator is None:
         raise ValueError("add_centroid=False requires a generator for the random start")
-    start = torch.randint(0, n, (b,), generator=generator, device=generator.device,
-                          dtype=torch.int32).to(xyz.device)
+    start = batch_randint(n, (b,), generator, dtype=torch.int32).to(xyz.device)
     idx = furthest_point_sample(xyz, k, start_idx=start)
     return _take(xyz, idx), idx
 

@@ -65,6 +65,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from slide_tpu_torch.data import DeviceCorpus, get_dataloader, make_assemble_fn
@@ -79,6 +80,9 @@ from slide_tpu_torch.models import (PVCNN2, ConditionalPointNet2, build_autoenco
                                     decode_params, get_pointwise_net)
 from slide_tpu_torch.models.fused_denoiser import make_fused_net_fn, make_fused_train_fn
 from slide_tpu_torch.ops import sample_keypoints
+from slide_tpu_torch.parallel import (all_reduce_mean, batch_randint, batch_randn,
+                                      broadcast_from_rank0, current_shard, data_parallel,
+                                      process_group_active)
 from slide_tpu_torch.pipeline import resolve_device
 from slide_tpu_torch.sap import DPSR, mirror_and_concat, network_output_to_dpsr_grid
 from slide_tpu_torch.train.checkpoint import (load_checkpoint, mirror_checkpoint,
@@ -153,13 +157,20 @@ def _new_state(net: nn.Module, train_config: dict) -> TrainState:
 
 
 def _step_update(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-    """Backward, Adam, the EMA shadows; the loss, detached."""
+    """Backward, Adam, the EMA shadows; the loss, detached.  Inside
+    `data_parallel()` the gradients and the loss are first all-reduced to
+    their mean over the ranks (one bucket): the global batch's."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    loss = loss.detach()
+    if current_shard() is not None:
+        loss = loss.clone()
+        all_reduce_mean([p.grad for p in state.net.parameters() if p.grad is not None]
+                        + [loss])
     state.optimizer.step()
     ema_update(state.ema, list(state.net.parameters()), state.ema_rates)
     state.step += 1
-    return loss.detach()
+    return loss
 
 
 def _trainset_config(config: dict, data_dir: Optional[str]) -> dict:
@@ -207,7 +218,7 @@ def sample_train_keypoints(points: torch.Tensor, trainset_config: dict,
         if noise is None:
             if generator is None:
                 raise ValueError("keypoint noise requires a generator")
-            noise = torch.randn(keypoint.shape, generator=generator, device=generator.device)
+            noise = batch_randn(keypoint.shape, generator)
         keypoint = keypoint + nm * noise.to(keypoint.device)
     return keypoint
 
@@ -397,7 +408,20 @@ def run_training(config: dict, state: TrainState, train_step: Callable, *,
     + 101.  The checkpoint, hook and resume cadence is the loader's.
     `steps_per_dispatch` (the JAX package's steps per `lax.scan`) is
     accepted and has no effect: the port dispatches step by step until
-    its steps are captured as CUDA graphs (ROADMAP item 7)."""
+    its steps are captured as CUDA graphs (ROADMAP item 7).
+
+    Under an initialised process group of W ranks (the counterpart of the
+    JAX package's `mesh=`; `parallel/multihost.py`) the run is data
+    parallel: each rank reads its rank's split of the data at batch
+    `batch_size // W` (which must divide), starts from rank 0's
+    parameters and EMA shadows (broadcast once, after any resume: every
+    rank resumes from the same checkpoint), and runs each step inside
+    `parallel.data_parallel()`: the global batch's draws, its rows kept,
+    and the gradients and the logged loss all-reduced to the global
+    batch's mean.  The ranks take the number of iterations of the shortest
+    rank's loader.  Only rank 0 writes checkpoints and the durable mirror
+    and runs `eval_hook`; every rank returns once the last checkpoint is
+    written.  `device_data` applies with W == 1 only."""
     train_config = config["train_config"]
     scope = activation_dtype_scope(train_config["activation_dtype"]) \
         if "activation_dtype" in train_config else contextlib.nullcontext()
@@ -414,14 +438,24 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
     trainset_config = _trainset_config(config, data_dir)
     dev = next(state.net.parameters()).device
     _, output_directory = experiment_dirs(config)
+    rank, world = (dist.get_rank(), dist.get_world_size()) if process_group_active() \
+        else (0, 1)
+    batch_size = trainset_config["batch_size"]
+    if batch_size % world != 0:
+        raise ValueError(
+            f"batch size {batch_size} is not divisible by the {world} ranks — nothing "
+            f"would ever train (pick batch_size as a multiple of {world})")
+    batch_size //= world
 
     time_offset, ckpt_iter = 0, -1
     ckpt_sel = train_config.get("ckpt_iter")
     durable_dir = train_config.get("durable_ckpt_dir")
-    if durable_dir and ckpt_sel == "max":
+    if durable_dir and ckpt_sel == "max" and rank == 0:
         restored = restore_from_mirror(output_directory, durable_dir)
         if restored and verbose:
             print(f"restored checkpoint from durable mirror: {restored}", flush=True)
+    if durable_dir and world > 1:
+        dist.barrier()                   # the restored file is there for every rank
     if ckpt_sel == "max" or isinstance(ckpt_sel, int):
         ckpt = load_checkpoint(output_directory, None if ckpt_sel == "max" else ckpt_sel)
         if ckpt is not None:
@@ -434,19 +468,25 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
             time_offset = ckpt.get("training_time_seconds", 0)
             if verbose:
                 print(f"resumed from iteration {ckpt_iter}", flush=True)
+    if world > 1:
+        broadcast_from_rank0(list(state.net.parameters())
+                             + [t for shadow in state.ema for t in shadow])
 
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
-    loader = get_dataloader(trainset_config, phase="train", seed=seed)
+    loader = get_dataloader(trainset_config, phase="train", seed=seed, rank=rank,
+                            world_size=world)
     batches = _loader_batches(loader, dev)
-    if train_config.get("device_data", False):
+    if train_config.get("device_data", False) and world == 1:
         batches = _device_batches(loader.dataset, trainset_config, dev, seed, verbose)
     loader_len = len(loader)
+    if world > 1:
+        loader_len = _min_over_ranks(loader_len, dev)
     n_iters = int(loader_len * train_config["n_epochs"])
     if max_iters is not None:
         n_iters = min(n_iters, max_iters)
     iters_per_ckpt = max(1, int(loader_len * train_config["epochs_per_ckpt"]))
     iters_per_logging = train_config["iters_per_logging"]
-    batch_size = trainset_config["batch_size"]
+    step_scope = data_parallel if world > 1 else contextlib.nullcontext
 
     losses = []
     n_iter = ckpt_iter + 1
@@ -463,7 +503,8 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
                           f"(batch_size {batch_size})", flush=True)
                     warned_partial = True
                 continue
-            loss = train_step(state, dbatch, generator)
+            with step_scope():
+                loss = train_step(state, dbatch, generator)
             if n_iter % iters_per_logging == 0:
                 loss_v = float(loss)
                 if not np.isfinite(loss_v):
@@ -474,7 +515,7 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
                           f"\ttime: {time.time() - log_t:.2f}s", flush=True)
                 log_t = time.time()
             n_iter += 1
-            if n_iter % iters_per_ckpt == 0:
+            if n_iter % iters_per_ckpt == 0 and rank == 0:
                 _save(state, output_directory, n_iter - 1,
                       int(time.time() - t0) + time_offset, durable_dir)
                 if eval_hook is not None:
@@ -484,11 +525,21 @@ def _run_training(config: dict, state: TrainState, train_step: Callable, *,
         if n_iter == start_iter:
             raise ValueError(f"no full batches of {batch_size} in the dataset: "
                              f"batch_size exceeds the usable dataset size")
-    if n_iter > ckpt_iter + 1 and n_iter % iters_per_ckpt != 0:
+    if n_iter > ckpt_iter + 1 and n_iter % iters_per_ckpt != 0 and rank == 0:
         # a run that ends off the cadence keeps its last iterations
         _save(state, output_directory, n_iter - 1, int(time.time() - t0) + time_offset,
               durable_dir)
+    if world > 1:
+        dist.barrier()                   # rank 0's last checkpoint is there for every rank
     return state, losses
+
+
+def _min_over_ranks(value: int, dev) -> int:
+    """The smallest of the ranks' `value`s (NCCL reduces on the card, gloo
+    on the host)."""
+    t = torch.tensor([value], device=dev if dist.get_backend() == "nccl" else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
 
 
 def _loader_batches(loader, dev) -> Callable:
@@ -763,7 +814,7 @@ def _draw_fns(generator: torch.Generator, device, draws: Optional[dict]):
             return next(noises).to(device)
     else:
         def noise_fn(shape):
-            return torch.randn(shape, generator=generator, device=generator.device).to(device)
+            return batch_randn(shape, generator).to(device)
     if "fps_starts" in draws:
         starts = iter(draws["fps_starts"])
 
@@ -771,8 +822,7 @@ def _draw_fns(generator: torch.Generator, device, draws: Optional[dict]):
             return torch.as_tensor(next(starts), device=device)
     else:
         def start_fn(b, n):
-            return torch.randint(0, n, (b,), generator=generator, device=generator.device,
-                                 dtype=torch.int32).to(device)
+            return batch_randint(n, (b,), generator, dtype=torch.int32).to(device)
     return noise_fn, start_fn
 
 
@@ -953,7 +1003,7 @@ def make_upsampler_train_step(net: nn.Module, dpsr: nn.Module, trainset_config: 
                 shape = (b, n, dpsr_config["split_factor"], f) if split else (b, n, f)
                 noise = draws.get("ae_noise")
                 if noise is None:
-                    noise = torch.randn(shape, generator=generator, device=generator.device)
+                    noise = batch_randn(shape, generator)
                 noise = noise_magnitude * noise.to(x.device)
                 x = (x[:, :, None, :] + noise).reshape(b, -1, f) if split else x + noise
         if mirror_first:

@@ -1288,3 +1288,22 @@ def test_native_and_device_marching_agree(cuda):
     assert_same_mesh(device, oracle)
     assert_same_mesh(native, oracle)
     assert_same_mesh(device, native)
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel training on one card: two ranks as two processes over gloo
+# (NCCL refuses two ranks on one device)
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_step_on_one_card_matches_one_process(cuda, tmp_path):
+    # the keypoint DDPM's step at full width, 16 rows a rank, against one
+    # process's step on the 32 rows with the same draws: every gradient
+    # element within GRAD_RTOL / GRAD_ATOL, the ranks' parameters bit-equal
+    from torch_parallel_cases import run_ranks
+    ranks = run_ranks("card", str(tmp_path), device="cuda", timeout=600)
+    ref = ranks[0]
+    print(f"gradient gap {ref['gap']:.3e} of {ref['largest']:.3e}, {ref['beyond']} beyond")
+    assert ref["beyond"] == 0
+    assert abs(ref["loss"] - ref["ref_loss"]) <= 1e-5 * abs(ref["ref_loss"])
+    assert ranks[1]["digest"] == ref["digest"]

@@ -32,6 +32,12 @@ CASES = sorted((REPO / "tests").glob("torch_*_cases.py"))
 BACKBONES = ("data/device_corpus.py", "data/tools.py", "data/object_io.py",
              "ops/voxel.py", "models/pvcnn.py", "models/pointwise_net.py",
              "nn/attention.py", "nn/modules.py")
+# the command line, the processes and devices, the helpers and the writers,
+# which copy JAX-package modules that import JAX
+CLI = ("cli/__init__.py", "cli/__main__.py", "cli/main.py", "config.py",
+       "parallel/__init__.py", "parallel/multihost.py", "parallel/sharded.py",
+       "utils/__init__.py", "utils/checks.py", "utils/logging.py", "utils/model_utils.py",
+       "utils/profiling.py", "utils/tree.py", "vis/pcd.py", "vis/plot.py")
 
 
 def _imported(path: Path):
@@ -49,7 +55,7 @@ def _imported(path: Path):
 def test_the_port_has_files():
     assert len(FILES) > 15
     assert (REPO / "slide_tpu_torch" / "native" / "marching.cpp").is_file()
-    for rel in TRAINING + AE + SAP + CONDITIONAL + BACKBONES:
+    for rel in TRAINING + AE + SAP + CONDITIONAL + BACKBONES + CLI:
         assert REPO / "slide_tpu_torch" / rel in FILES
 
 

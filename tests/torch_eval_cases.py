@@ -357,9 +357,13 @@ def test_keypoint_generation_eval_matches_jax(tree, tmp_path):
     assert os.path.basename(got) == os.path.basename(want) == \
         "shapenet_psr_generated_data_16_pts_iter_9.npz"
     _assert_npz_equal(got, want, CHAIN_ATOL)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        t_gen.evaluate_per_rank(tnet, cfg, None, str(tmp_path), "keypoint_generation",
-                                device="cpu", mesh=object())
+    # the denoiser over two devices (both the CPU here) in row blocks, the
+    # draws the whole batch's: JAX's samples as well
+    meshed = t_gen.evaluate_per_rank(
+        tnet, cfg, td.calc_diffusion_hyperparams(t_steps, 1e-4, 0.02), str(tmp_path / "mesh"),
+        "keypoint_generation", ckpt_info="_iter_9", seed=seed, mesh=["cpu", "cpu"],
+        noise_fn=_replay(draws))
+    _assert_npz_equal(meshed, want, CHAIN_ATOL)
     # the condition-cloud route runs (held to JAX with the dual-tower net in
     # tests/test_torch_conditional.py); this net takes no condition
     cond = t_gen.evaluate_per_rank(
