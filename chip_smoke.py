@@ -72,12 +72,25 @@ line each as soon as it ends:
            work at the fp32 FFMA rate, fp32_operations_ms); the clusters held
            at once and the waves; the launch's parts from the profiler: the
            chain, the weight-gradient kernel, the parts' sum, the gather
+  k64      K1 and K2 at 64 points, the kernels' limit: the kp and latent
+           presets at num_keypoints=64 with the committed weights.  K1 at
+           batch 16 against its plain version (atol 1e-4), kernel, plain and
+           module ms, the bound, the plan, and K1 planned at 1 and 2 blocks
+           per SM; K2 at batch 32: two launches equal, the float64 gate on the
+           first K64_CHECK clouds, ms, plain ms, the bound; beside each bound,
+           `scratch_bytes_ms`: the rows the kernel's own design moves through
+           device memory (K1's rows in scratch, K2's tape), not in the bound
+  slice64  the main path at 64 keypoints, fused, T64 steps a chain,
+           counted from zero: exactly 2 x T64 K1, 13 FPS and no K2 launches,
+           the keypoints (16, 64, 3), the slice's checks, seconds per stage;
+           each K1 and FPS shape it launched against its plain version
   train    position-DDPM training at the kp preset's full width and batch
            32 on a synthetic airplane tree written here: one step's card
-           gradient against the CPU module's, every element of every
-           parameter within rtol 5e-3, atol 1e-4 (the JAX package's
-           fused-vs-module tolerance) once the relu ties that K2 resolved
-           otherwise than float64 are taken off; then `train_position_ddpm`
+           gradient against the module's in float64 on the CPU at the card's
+           inputs, every element of every parameter within rtol 5e-3, atol
+           1e-4 (the JAX package's fused-vs-module tolerance) once the relu
+           ties that K2 resolved otherwise than float64 are taken off
+           (`check_train_gradient`); then `train_position_ddpm`
            for a few warm-up steps (a checkpoint) and a counted run resumed
            from it: ms per step, the loss at the first and last logged
            iterations (finite), exactly one K2 and one K1 launch per step and
@@ -85,6 +98,10 @@ line each as soon as it ends:
            `train_position_ddpm` under `torch.profiler`: the card's busy ms
            per step, the idle share of the counted run's step, the kernels
            and host operations that take the most time
+  train64  the same at 64 keypoints (the kp preset at num_keypoints=64):
+           the gradient gate, TRAIN64_WARMUP warm-up and TRAIN64_STEPS counted
+           steps with exactly one K3, one K1 and one K2 a step, the profiled
+           run, each K1 / K2 / FPS shape against its plain version
   train_ae the point autoencoder at the shipped preset's full width and batch
            32 on the same tree: `encode` on the card (the committed AE
            weights, the posterior sampled) against the CPU on the same
@@ -282,9 +299,15 @@ TRAIN_BATCH = 32
 TRAIN_WARMUP = 5
 TRAIN_STEPS = 100
 PROFILE_STEPS = 15
-# one step's card gradient against the CPU module's, per element (the JAX
-# package's fused-vs-module tolerance), once K2's tie decisions are taken off
+# one step's card gradient against the float64 module's on the CPU, per
+# element (the JAX package's fused-vs-module tolerance), once K2's tie
+# decisions are taken off
 GRAD_RTOL, GRAD_ATOL = 5e-3, 1e-4
+# how far the CPU's own net inputs (x_t, the timestep embedding t4) may lie
+# from the card's before the card's values replace them in the gradient
+# gate's CPU runs: rounding, on the scale of a relu tie (`tie` in
+# `fused_backward_reference`), x max(1, max |input|)
+INPUT_TOL = 1e-5
 # (N, K) of the FPS calls of one decode, in call order: the keypoint level's
 # trim, level 2's SA stack and trim, level 3's SA stack and trim
 DECODE_FPS = [(512, 256), (256, 128), (128, 64), (64, 16), (2048, 1024),
@@ -439,6 +462,21 @@ DDP_WORLD = 2
 DDP_BATCH = 32
 DDP_WARMUP, DDP_STEPS = 3, 20
 DDP_TIMEOUT = 300
+# 64 points, the fused kernels' limit (`fused_denoiser.MAX_POINTS`): the kp
+# and latent presets at num_keypoints=64 with the committed checkpoints (a
+# ConditionalPointNet2's weights do not depend on N).  `k64` holds K1 at
+# batch 16 and K2 at batch 32 against their plain versions, K2's float64
+# reference on the batch's first K64_CHECK clouds (a launch of their own,
+# whose rows of d pc, d t4 and d cls the batch's launch must equal);
+# `slice64` runs the chain at T64 steps; `train64` the kp preset's training
+N64 = 64
+T64 = T_STEPS
+K64_CHECK = 4
+TRAIN64_WARMUP, TRAIN64_STEPS = 3, 20
+# the FPS shapes new at 64 keypoints: the decode's first trim (2048 -> 256
+# at batch 16; 512 -> 256 at 16 keypoints) and training's keypoint draw
+# (2049 -> 64 at batch 32)
+K64_FPS = [(2048, 256, BATCH), (2049, N64, TRAIN_BATCH)]
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -446,8 +484,13 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 
 
+_START = time.perf_counter()
+
+
 def log(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line: the phase, its figures, and `t`, the seconds since the
+    script started."""
+    print(json.dumps({"phase": phase, **kw, "t": time.perf_counter() - _START}), flush=True)
 
 
 def smi_line() -> str:
@@ -487,7 +530,7 @@ def bound(parts) -> tuple[float, str]:
 def phase_k3(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     per_shape, max_err = {}, 0
-    shapes = ({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS}
+    shapes = ({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS} | set(K64_FPS)
               | {(n, k, TRAIN_BATCH) for n, k in ENCODER_FPS + SAP_FPS})
     for n, k, b in sorted(shapes):
         xyz = torch.randn((b, n, 3), generator=gen, device=dev)
@@ -514,49 +557,59 @@ def phase_k3(dev) -> dict:
     return per_shape, max_err
 
 
-def _table_work(lay: dict, b: int) -> tuple[int, int]:
-    """(flops, weight floats) of one fused forward at batch b, from the packed
-    net's layer table: the weight dots, 2 * rows * c_in * c_out each, and
-    every weight once."""
+def _table_work(lay: dict, b: int) -> tuple[int, int, list]:
+    """(flops, weight floats, products) of one fused forward at batch b,
+    from the packed net's layer table: the weight dots, 2 * rows * c_in *
+    c_out each, and every weight once.  `products` lists each dot as (rows
+    in, c_in, rows out, c_out, where K1 reads its input, where it writes its
+    output) per cloud: 0 / 1 for K1's two row buffers (`buf`, `bglob`),
+    None for shared memory always (the level features, the point buffer)
+    or the kernel's own inputs and output."""
     n = lay["n"]
-    tot = {"flops": 0, "weights": 0}
+    tot = {"flops": 0, "weights": 0, "products": []}
 
-    def dense(d, rows):
+    def dense(d, rows, src=None, dst=None, rows_out=None):
         tot["flops"] += 2 * b * rows * d["cin"] * d["cout"]
         tot["weights"] += d["cin"] * d["cout"] + (d["cout"] if d["b"] >= 0 else 0)
+        tot["products"].append((rows, d["cin"], rows if rows_out is None else rows_out,
+                                d["cout"], src, dst))
 
     def norm(nd):
         tot["weights"] += 2 * (nd["c"] - nd["c"] % nd["g"])
 
-    def mlp(m, rows):
+    def mlp(m, rows, src, dst):
+        # the first layer reads src, the others work in place in dst
         for i in range(m["n_layers"]):
-            dense(m["conv"][i], rows)
+            dense(m["conv"][i], rows, src if i == 0 else dst, dst)
             norm(m["norm"][i])
         if m["inject_t"]:
             dense(m["fc_t"], 1)
         if m["inject_c"]:
             dense(m["fc_c"], 1)
         if m["res"] == 2:
-            dense(m["res_conv"], rows)
+            dense(m["res_conv"], rows, src, dst)
 
     def att(a, k):
-        dense(a["feat_conv"], n)
-        for key in ("grouped_conv", "w_conv_1", "w_conv_2", "out_conv"):
-            dense(a[key], n * k)
+        # the grouped rows and scores in buffer 0, the values in buffer 1;
+        # the point-wise product written to each of a point's k slots
+        dense(a["feat_conv"], n, None, 0, rows_out=n * k)
+        for key in ("grouped_conv", "w_conv_1", "w_conv_2"):
+            dense(a[key], n * k, 0, 0)
+        dense(a["out_conv"], n * k, 1, 1)
         for key in ("w_norm_1", "w_norm_2", "out_norm"):
             norm(a[key])
 
     for s in lay["sa"][:lay["n_sa"]]:
-        mlp(s["mlp"], n * s["k"])
+        mlp(s["mlp"], n * s["k"], 0, 1)
         att(s["att"], s["k"])
     for f in lay["fp"][:lay["n_fp"]]:
-        mlp(f["mlp1"], n * f["k"])
+        mlp(f["mlp1"], n * f["k"], 0, 1)
         att(f["att"], f["k"])
-        mlp(f["mlp2"], n)
-    dense(lay["head1"], n)
+        mlp(f["mlp2"], n, None, 0)
+    dense(lay["head1"], n, None, 0)
     norm(lay["head_norm"])
-    dense(lay["head_out"], n)
-    return tot["flops"], tot["weights"]
+    dense(lay["head_out"], n, 0, None)
+    return tot["flops"], tot["weights"], tot["products"]
 
 
 def tc_ms(flops: float) -> float:
@@ -565,11 +618,31 @@ def tc_ms(flops: float) -> float:
     return 1e3 * 3 * flops / PEAK_TF32_FLOPS
 
 
+def k1_row_floats(lay: dict, products: list) -> int:
+    """Floats a cloud that K1's products move through its row buffers where
+    the plan puts them in the block's device scratch (`bglob`): each
+    product's input rows read there once, its output rows written there
+    once.  0 when both buffers are in shared memory."""
+    glob = lay["bglob"]
+    return sum((rin * cin if src is not None and glob[src] else 0)
+               + (rout * cout if dst is not None and glob[dst] else 0)
+               for rin, cin, rout, cout, src, dst in products)
+
+
+def k2_tape_floats(products: list) -> int:
+    """Floats a cloud that K2's products move through its tape in device
+    memory: each dot's input rows read and output rows written once by the
+    recompute, its output gradient read and input gradient written once by
+    the backward's d input = dY W^T, and both read once by the weight
+    gradient's d W = X^T dY."""
+    return 3 * sum(rin * cin + rout * cout for rin, cin, rout, cout, _, _ in products)
+
+
 def k1_bound_parts(lay: dict, b: int) -> tuple[float, float]:
     """(bytes ms, operations ms) of one fused forward at batch b: inputs,
     output and weights once at the memory rate; the weight dots as 3xTF32 on
     the tensor cores, which is how the kernel computes them."""
-    flops, weights = _table_work(lay, b)
+    flops, weights, _ = _table_work(lay, b)
     n = lay["n"]
     io = b * n * lay["din"] + b * lay["t4"] + b * lay["cls"] + b * n * lay["out_dim"]
     return 1e3 * 4 * (io + weights) / PEAK_BYTES, tc_ms(flops)
@@ -581,10 +654,25 @@ def k2_bound_parts(lay: dict, b: int) -> tuple[float, float]:
     (of pc, t4, cls and the weights) written once at the memory rate; three
     weight dots per forward one (the recompute, d input, d weight) as 3xTF32
     on the tensor cores, which is how the kernel computes them."""
-    flops, weights = _table_work(lay, b)
+    flops, weights, _ = _table_work(lay, b)
     n = lay["n"]
     io = 2 * (b * n * lay["din"] + b * lay["t4"] + b * lay["cls"]) + b * n * lay["out_dim"]
     return 1e3 * 4 * (io + 2 * weights) / PEAK_BYTES, tc_ms(3 * flops)
+
+
+def k1_scratch_ms(lay: dict, b: int) -> float:
+    """The rows that K1's plan moves through the blocks' device scratch at
+    batch b (`k1_row_floats`), in ms at the memory rate.  Traffic of the
+    design, not of the function: logged as `scratch_bytes_ms` beside the
+    bound, never counted in it."""
+    return 1e3 * 4 * b * k1_row_floats(lay, _table_work(lay, b)[2]) / PEAK_BYTES
+
+
+def k2_scratch_ms(lay: dict, b: int) -> float:
+    """The rows that K2 moves through its tape at batch b
+    (`k2_tape_floats`), in ms at the memory rate; as `k1_scratch_ms`, the
+    design's traffic, beside the bound and not in it."""
+    return 1e3 * 4 * b * k2_tape_floats(_table_work(lay, b)[2]) / PEAK_BYTES
 
 
 def fp32_ms(flops: float) -> float:
@@ -641,8 +729,8 @@ def k2_parts_ms(fn, reps: int = 5) -> dict:
     return {k: v / 1e3 / reps for k, v in parts.items()}
 
 
-def k1_inputs(net, b: int, width: int, gen, dev):
-    pc = torch.randn((b, 16, width), generator=gen, device=dev)
+def k1_inputs(net, b: int, n: int, width: int, gen, dev):
+    pc = torch.randn((b, n, width), generator=gen, device=dev)
     ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
     label = torch.randint(0, 13, (b,), generator=gen, device=dev)
     with torch.no_grad():
@@ -671,7 +759,7 @@ def phase_k1_plans(stages, dev) -> None:
     and timed, so that the plan the net takes can be seen to be the faster."""
     gen = torch.Generator(device=dev).manual_seed(3)
     for name, net, fn, width in k1_nets(stages):
-        pc, _, _, t4, cls = k1_inputs(net, BATCH, width, gen, dev)
+        pc, _, _, t4, cls = k1_inputs(net, BATCH, fn.spec["n"], width, gen, dev)
         with torch.no_grad():
             want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
         for occupancy in (1, 2):
@@ -704,7 +792,7 @@ def phase_k1(stages, dev) -> tuple[dict, float]:
     res, max_err = {}, 0.0
     for name, net, fn, width in k1_nets(stages):
         for b in K1_BATCHES:
-            pc, ts, label, t4, cls = k1_inputs(net, b, width, gen, dev)
+            pc, ts, label, t4, cls = k1_inputs(net, b, fn.spec["n"], width, gen, dev)
             with torch.no_grad():
                 got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
                 want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
@@ -719,11 +807,13 @@ def phase_k1(stages, dev) -> tuple[dict, float]:
                     lambda: fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls), 10)
                 module_ms = cuda_ms(lambda: net(pc, ts=ts, label=label), 10)
             parts = k1_bound_parts(fn.packed.layout, b)
-            res[(name, b)] = (ms, plain_ms, module_ms, parts)
+            scratch = k1_scratch_ms(fn.packed.layout, b)
+            res[(name, b)] = (ms, plain_ms, module_ms, parts, scratch)
             bound_ms, bound_by = bound(parts)
             log("k1", net=name, batch=b, max_abs_err=err, atol=K1_ATOL, ms=ms,
                 plain_ms=plain_ms, module_ms=module_ms, bound_ms=bound_ms,
                 bound_by=bound_by, bytes_ms=parts[0], operations_ms=parts[1],
+                scratch_bytes_ms=scratch,
                 fp32_operations_ms=fp32_ms(_table_work(fn.packed.layout, b)[0]))
     return res, max_err
 
@@ -887,12 +977,12 @@ def k2_errors(got, want) -> dict:
     return errs
 
 
-def k2_case(net, b: int, width: int, gen, dev, duplicates: bool = False):
-    pc = torch.randn((b, 16, width), generator=gen, device=dev)
+def k2_case(net, b: int, n: int, width: int, gen, dev, duplicates: bool = False):
+    pc = torch.randn((b, n, width), generator=gen, device=dev)
     if duplicates:
         pc[:, 1] = pc[:, 0]
         pc[:, 2] = pc[:, 0]
-    g = torch.randn((b, 16, width), generator=gen, device=dev)
+    g = torch.randn((b, n, width), generator=gen, device=dev)
     ts = torch.randint(0, T_STEPS, (b,), generator=gen, device=dev)
     label = torch.randint(0, 13, (b,), generator=gen, device=dev)
     with torch.no_grad():
@@ -910,7 +1000,7 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
                                  ("lat", stages.lat_net, stages.lat_fused,
                                   3 + stages.latent_dim)]:
         for b, duplicates in cases:
-            pc, t4, cls, g = k2_case(net, b, width, gen, dev, duplicates)
+            pc, t4, cls, g = k2_case(net, b, fn.spec["n"], width, gen, dev, duplicates)
             got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
             again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
             want, ties = fd.fused_backward_reference(fn.packed, pc, t4, cls, g, got,
@@ -933,18 +1023,149 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
             plain_ms = cuda_ms(lambda: fd.fused_backward_plain(fn.packed, pc, t4, cls, g), 3)
             launch = k2_parts_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g))
             parts = k2_bound_parts(fn.packed.layout, b)
-            res[(name, b)] = (ms, plain_ms, parts)
+            scratch = k2_scratch_ms(fn.packed.layout, b)
+            res[(name, b)] = (ms, plain_ms, parts, scratch)
             bound_ms, bound_by = bound(parts)
             lay2 = fn.packed.layout2
             clusters = k2_max_clusters(fn.packed)
             log("k2", net=name, batch=b, err=errs, ties=ties, repeat_equal=True,
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes_ms=parts[0], operations_ms=parts[1],
+                bytes_ms=parts[0], operations_ms=parts[1], scratch_bytes_ms=scratch,
                 fp32_operations_ms=fp32_ms(3 * _table_work(fn.packed.layout, b)[0]),
                 blocks_per_cloud=lay2["cluster"], blocks_per_sm=lay2["occupancy"],
                 max_clusters=clusters, waves=-(-b // clusters), parts_ms=launch,
                 weight_grad_ms=launch["weight_grad"], weight_grad_splits=fn.packed.splits)
     return res, worst
+
+
+def k64_stages():
+    """The main path's stages at 64 keypoints, fused, T64 steps a chain."""
+    return build_stages(BATCH, T64, configs={"kp": keypoint_ddpm_config(num_keypoints=N64),
+                                             "lat": latent_ddpm_config(num_keypoints=N64)})
+
+
+def phase_k64(stages, dev) -> dict:
+    """K1 and K2 at 64 points, the kp and latent nets of the 64-point
+    stages: K1 at batch 16 against its plain version (K1_ATOL), kernel,
+    plain and module ms, the bound and its parts, its plan, and K1 planned
+    for one and for two blocks per SM (`k1_plan`'s fields); K2 at batch 32:
+    two launches equal, the float64 gate on the first K64_CHECK clouds, ms,
+    plain (fp32) ms, the bound, the profiler's parts.  Returns per net the
+    K1 (ms, plain ms, module ms, bound parts) and K2 (ms, plain ms, bound
+    parts)."""
+    gen = torch.Generator(device=dev).manual_seed(64)
+    res = {}
+    for name, net, fn, width in k1_nets(stages):
+        lay = fn.packed.layout
+        if lay["n"] != N64:
+            raise AssertionError(f"k64 {name}: the packed net holds {lay['n']} points")
+        pc, ts, label, t4, cls = k1_inputs(net, BATCH, N64, width, gen, dev)
+        with torch.no_grad():
+            want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
+            for occupancy in (1, 2):
+                try:
+                    packed = pack_at(net, fn.spec, occupancy)
+                except ValueError as e:
+                    log("k64_k1_plan", net=name, blocks_per_sm=occupancy, fits=False,
+                        why=str(e))
+                    continue
+                got = fd.fused_forward_cuda(packed, pc, t4, cls)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"k64 {name} at {occupancy} blocks per SM: kernel "
+                                         f"and plain differ by {err}")
+                log("k64_k1_plan", net=name, blocks_per_sm=occupancy, fits=True,
+                    own=packed.layout["occupancy"] == lay["occupancy"],
+                    smem_bytes=packed.layout["smem_bytes"],
+                    max_clusters=k1_max_clusters(packed), stage_floats=packed.layout["stage"],
+                    rows_in_device_memory=packed.layout["bglob"], batch=BATCH,
+                    max_abs_err=err, atol=K1_ATOL,
+                    ms=cuda_ms(lambda: fd.fused_forward_cuda(packed, pc, t4, cls), 20))
+                del packed
+            got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"k64 {name}: K1 and plain differ by {err}")
+            ms = cuda_ms(lambda: fd.fused_forward_cuda(fn.packed, pc, t4, cls), 20)
+            plain_ms = cuda_ms(lambda: fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls),
+                               5)
+            module_ms = cuda_ms(lambda: net(pc, ts=ts, label=label), 5)
+        k1_parts = k1_bound_parts(lay, BATCH)
+        k1_scratch = k1_scratch_ms(lay, BATCH)
+        flops, _, products = _table_work(lay, BATCH)
+        log("k64_k1", net=name, n=N64, batch=BATCH, shape=list(pc.shape), max_abs_err=err,
+            atol=K1_ATOL, ms=ms, plain_ms=plain_ms, module_ms=module_ms,
+            bound_ms=bound(k1_parts)[0], bound_by=bound(k1_parts)[1], bytes_ms=k1_parts[0],
+            operations_ms=k1_parts[1], fp32_operations_ms=fp32_ms(flops),
+            scratch_bytes_ms=k1_scratch, row_floats_per_cloud=k1_row_floats(lay, products),
+            plan={"smem_bytes": lay["smem_bytes"], "blocks_per_sm": lay["occupancy"],
+                  "rows_in_device_memory": lay["bglob"], "blk_floats": lay["blk_floats"],
+                  "cloud_floats": lay["cloud_floats"], "stage_floats": lay["stage"],
+                  "max_clusters": k1_max_clusters(fn.packed)})
+        del want, got
+
+        pc, t4, cls, g = k2_case(net, TRAIN_BATCH, N64, width, gen, dev)
+        got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+        again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+        sub = [x[:K64_CHECK].contiguous() for x in (pc, t4, cls, g)]
+        mine = fd.fused_backward_cuda(fn.packed, *sub)
+        torch.cuda.synchronize()
+        for key, x, z in zip(("dpc", "dt4", "dcls", "dflat"), got, again):
+            if not torch.equal(x, z):
+                raise AssertionError(f"k64 {name}: K2's {key} differs between two launches")
+        for key, x, z in zip(("dpc", "dt4", "dcls"), got, mine):
+            if not torch.equal(x[:K64_CHECK], z):
+                raise AssertionError(f"k64 {name}: K2's {key} of the first {K64_CHECK} "
+                                     f"clouds differs from their own launch's")
+        want, ties = fd.fused_backward_reference(fn.packed, *sub, mine, tol=K2_TOL)
+        errs = k2_errors(mine, want)
+        bad = [key for key, e in errs.items() if not e["ok"]]
+        if bad:
+            raise AssertionError(f"k64 {name}: K2's {bad} differ from float64: {errs}")
+        del want, mine, again
+        ms2 = cuda_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g), 5)
+        plain_ms2 = cuda_ms(lambda: fd.fused_backward_plain(fn.packed, pc, t4, cls, g), 2)
+        launch = k2_parts_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g))
+        k2_parts = k2_bound_parts(lay, TRAIN_BATCH)
+        k2_scratch = k2_scratch_ms(lay, TRAIN_BATCH)
+        lay2 = fn.packed.layout2
+        clusters = k2_max_clusters(fn.packed)
+        log("k64_k2", net=name, n=N64, batch=TRAIN_BATCH, shape=list(pc.shape),
+            checked_clouds=K64_CHECK, err=errs, ties=ties, repeat_equal=True, ms=ms2,
+            plain_ms=plain_ms2, bound_ms=bound(k2_parts)[0], bound_by=bound(k2_parts)[1],
+            bytes_ms=k2_parts[0], operations_ms=k2_parts[1],
+            fp32_operations_ms=fp32_ms(3 * _table_work(lay, TRAIN_BATCH)[0]),
+            scratch_bytes_ms=k2_scratch, tape_floats_per_cloud=k2_tape_floats(products),
+            bwd_floats=lay2["bwd_floats"],
+            blocks_per_cloud=lay2["cluster"], blocks_per_sm=lay2["occupancy"],
+            smem_bytes=lay2["smem_bytes"], max_clusters=clusters,
+            waves=-(-TRAIN_BATCH // clusters), parts_ms=launch,
+            weight_grad_splits=fn.packed.splits)
+        res[name] = {"k1": (ms, plain_ms, module_ms, k1_parts, k1_scratch),
+                     "k2": (ms2, plain_ms2, k2_parts, k2_scratch), "k2_err": max(
+                         e["max_abs"] for e in errs.values()), "k1_err": err}
+        del got, pc, t4, cls, g
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_slice64(stages, dev) -> dict:
+    """The main path at 64 keypoints, counted from zero: exactly 2 x T64 K1,
+    len(PASS_FPS) K3 and no K2 launches, the keypoints (16, 64, 3) and their
+    features (16, 64, latent_dim), the slice's checks (`run_slice`); every
+    K1 and FPS shape it launched against its plain version."""
+    inputs = KernelInputs()
+    with inputs.recording():
+        out, launches = run_slice("slice64", stages, 0, want_fused=2 * T64)
+    shapes_ok = (tuple(out["keypoints"].shape) == (BATCH, N64, 3)
+                 and tuple(out["features"].shape) == (BATCH, N64, stages.latent_dim))
+    if not shapes_ok or launches.get("fused_denoiser_bwd", 0):
+        raise AssertionError(f"slice64: keypoints {list(out['keypoints'].shape)}, features "
+                             f"{list(out['features'].shape)}, launches {launches}")
+    k1_err = inputs.check("slice64")
+    return {"launches": launches, "seconds": out["seconds"], "k1_err": k1_err}
 
 
 def _task_config(config: dict, root: str, exp: str) -> dict:
@@ -958,11 +1179,17 @@ def _task_config(config: dict, root: str, exp: str) -> dict:
 
 def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> float:
     """One step's gradients: the card's fused denoiser (K1 + K2) against the
-    module on the CPU, same weights, input `x` (the keypoints or the
-    latent), labels, ts and z, `loss_fn(net_fn, x, ts, z)`, per element once the
-    relu ties that K2 resolved otherwise than float64 are taken off.  Those
-    are found at the core: K2 relaunched on the inputs and the cotangent the
-    step gave it, against `fused_backward_reference`."""
+    module run in float64 on the CPU, same weights, input `x` (the keypoints
+    or the latent), labels, ts and z, `loss_fn(net_fn, x, ts, z)`, per
+    element once the relu ties that K2 resolved otherwise than float64 are
+    taken off.  Those are found at the core: K2 relaunched on the inputs and
+    the cotangent the step gave it, against `fused_backward_reference` (K2's
+    gate at K2_TOL; the ties taken off down to a tenth of it).  The float64
+    module evaluates the net at the card's core inputs, x and the timestep
+    embedding t4, since a relu tie moves with an input's last bit: each must
+    lie within INPUT_TOL x max(1, max |input|) of the CPU's own value, and
+    the gaps are logged.
+    The CPU module in fp32, on the same inputs, is logged beside it."""
     net = train_driver.init_params(ConditionalPointNet2(pointnet),
                                    torch.Generator().manual_seed(0))
     cpu_net = ConditionalPointNet2(pointnet)
@@ -987,44 +1214,78 @@ def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> 
 
     loss = loss_fn(net_fn, x, ts.to(dev), z.to(dev))
     loss.backward()
-    cpu_loss = loss_fn(lambda xt, t: cpu_net(xt, ts=t, label=label), x.cpu(), ts, z)
+    # the CPU runs evaluate the net at the card's core inputs: its x and its
+    # t4 (the values; autograd's path to the embedder's weights stays the
+    # module's own), once each is shown to be the CPU's own within rounding
+    card_x = core["x"].cpu()
+    t4 = net.t_embedder(core["ts"])
+    card_t4 = t4.detach().cpu()
+    gaps = {}
+
+    def near(side, name, mine, card):
+        # within INPUT_TOL of the input's scale: t4 comes from two fp32
+        # products of depth 128 and 512, summed in another order on the card
+        gap = float((mine.double() - card.double()).abs().max())
+        gaps[f"{side}_{name}"] = gap
+        if mine.shape != card.shape or not gap <= INPUT_TOL * max(1.0, float(card.abs().max())):
+            raise AssertionError(f"{phase}: the {side} CPU net's {name} is not the card's: "
+                                 f"{gaps}")
+
+    def at_card_input(m, side):
+        def swap_t4(mod, args, out):
+            near(side, "t4", out.detach(), card_t4)
+            return out + (card_t4.to(out.dtype) - out).detach()
+
+        def f(xt, t):
+            near(side, "x", xt.detach(), card_x)
+            hook = m.t_embedder.register_forward_hook(swap_t4)
+            try:
+                return m(card_x.to(xt.dtype), ts=t, label=label)
+            finally:
+                hook.remove()
+        return f
+
+    cpu_loss = loss_fn(at_card_input(cpu_net, "fp32"), x.cpu(), ts, z)
     cpu_loss.backward()
-    # the same loss in float64 on the CPU: how far each fp32 side lies from it
-    loss_fn(lambda xt, t: net64(xt, ts=t, label=label), x.cpu().double(), ts,
-            z.double()).backward()
+    loss_fn(at_card_input(net64, "float64"), x.cpu().double(), ts, z.double()).backward()
 
     # the core's inputs again (under autograd, to carry a change of K2's
     # output back to the parameters), K2 on them, and its tie decisions
-    t4 = net.t_embedder(core["ts"])
     cls = net.class_emb(label.to(dev))
     flat = apply.packed.live_flat()
     ins = [core["x"], t4.detach().contiguous(), cls.detach().contiguous(), flat.detach()]
     got = fd.fused_backward_cuda(apply.packed, ins[0], ins[1], ins[2], core["g"], ins[3])
     want, ties = fd.fused_backward_reference(apply.packed, ins[0], ins[1], ins[2],
                                              core["g"], got, ins[3], tol=K2_TOL)
+    # what is taken off the card's gradient: the ties K2 resolved otherwise
+    # than float64 down to a tenth of K2's bound (the search above stops at
+    # the bound, which an element near 0 of the per-element gate still sees)
+    fine, fine_ties = fd.fused_backward_reference(apply.packed, ins[0], ins[1], ins[2],
+                                                  core["g"], got, ins[3], tol=K2_TOL / 10,
+                                                  max_tries=64)
     plain64, _ = fd.fused_backward_reference(apply.packed, ins[0], ins[1], ins[2],
                                              core["g"], got, ins[3], max_tries=0)
     core_errs = k2_errors(got, want)
     params = dict(net.named_parameters())
     taken = torch.autograd.grad(
         [t4, cls, flat], list(params.values()),
-        [(w - p).float() for w, p in zip(want[1:], plain64[1:])], allow_unused=True)
+        [(w - p).float() for w, p in zip(fine[1:], plain64[1:])], allow_unused=True)
 
     beyond, beyond_raw, worst, where = 0, 0, 0.0, {}
-    f64 = {"card": [0.0, 0], "cpu": [0.0, 0], "size": 0.0}
+    cpu32 = {"max_abs_err": 0.0, "beyond": 0}
+    size = 0.0
     for (name, p), q, r, tie in zip(params.items(), cpu_net.parameters(), net64.parameters(),
                                     taken):
         raw = p.grad.double().cpu()
         got_p = raw - (0 if tie is None else tie.double().cpu())
-        want_p = q.grad.double()
-        tol = GRAD_ATOL + GRAD_RTOL * want_p.abs()
         ref = r.grad
-        f64["size"] = max(f64["size"], float(ref.abs().max()))
-        for side, g in (("card", got_p), ("cpu", want_p)):
-            f64[side][0] = max(f64[side][0], float((g - ref).abs().max()))
-            f64[side][1] += int(((g - ref).abs() > GRAD_ATOL + GRAD_RTOL * ref.abs()).sum())
-        beyond_raw += int(((raw - want_p).abs() > tol).sum())
-        err = (got_p - want_p).abs()
+        tol = GRAD_ATOL + GRAD_RTOL * ref.abs()
+        size = max(size, float(ref.abs().max()))
+        cpu_err = (q.grad.double() - ref).abs()
+        cpu32["max_abs_err"] = max(cpu32["max_abs_err"], float(cpu_err.max()))
+        cpu32["beyond"] += int((cpu_err > tol).sum())
+        beyond_raw += int(((raw - ref).abs() > tol).sum())
+        err = (got_p - ref).abs()
         worst = max(worst, float(err.max()))
         bad = int((err > tol).sum())
         if bad or not bool(torch.isfinite(raw).all()):
@@ -1032,11 +1293,10 @@ def check_train_gradient(phase: str, pointnet: dict, x, label, loss_fn, dev) -> 
         beyond += bad
     log(f"{phase}_gradient", loss=float(loss.detach()), cpu_loss=float(cpu_loss.detach()),
         max_abs_err=worst, beyond=beyond, beyond_before_ties=beyond_raw, ties=ties,
-        core=core_errs, float64={"max_abs_grad": f64["size"], "card_max_abs_err": f64["card"][0],
-                                 "card_beyond": f64["card"][1], "cpu_max_abs_err": f64["cpu"][0],
-                                 "cpu_beyond": f64["cpu"][1]})
+        ties_taken_off=fine_ties, max_abs_grad=size, input_gaps=gaps, core=core_errs,
+        cpu_fp32=cpu32)
     if where or not all(e["ok"] for e in core_errs.values()):
-        raise AssertionError(f"{phase}: gradient differs from the CPU module's: {where}; "
+        raise AssertionError(f"{phase}: gradient differs from the float64 module's: {where}; "
                              f"K2 at the core: {core_errs}")
     return worst
 
@@ -1149,6 +1409,33 @@ def phase_train(dev, root: str, tmp: str) -> dict:
     res = run_task("train", train_driver.train_position_ddpm, cfg, TRAIN_WARMUP, TRAIN_STEPS,
                    {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1}, PROFILE_STEPS)
     return {**res, "grad_err": grad_err}
+
+
+def phase_train64(dev, root: str, tmp: str) -> dict:
+    """Position-DDPM training at 64 keypoints (the kp preset at full width,
+    batch 32) through `train_position_ddpm`: one step's gradient as `train`
+    holds it, then TRAIN64_WARMUP warm-up and TRAIN64_STEPS counted steps
+    (exactly one K3, one K1 and one K2 a step) and a profiled run; every K1,
+    K2 and FPS shape it launched against its plain version."""
+    cfg = _task_config(keypoint_ddpm_config("airplane", num_keypoints=N64,
+                                            batch_size=TRAIN_BATCH), root,
+                       os.path.join(tmp, "exp_kp64"))
+    batch = _first_batch(cfg, dev)
+    x = train_driver.sample_train_keypoints(batch["points"], cfg["shapenet_psr_dataset_config"])
+    if tuple(x.shape) != (TRAIN_BATCH, N64, 3):
+        raise AssertionError(f"train64: keypoints {list(x.shape)}")
+    grad_err = check_train_gradient(
+        "train64", cfg["pointnet_config"], x, batch["label"],
+        lambda net_fn, xx, ts, z: diffusion_training_loss(
+            net_fn, xx, calc_diffusion_hyperparams(1000, 1e-4, 0.02, xx.device), ts=ts, z=z),
+        dev)
+    inputs = KernelInputs()
+    with inputs.recording():
+        res = run_task("train64", train_driver.train_position_ddpm, cfg, TRAIN64_WARMUP,
+                       TRAIN64_STEPS, {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1},
+                       TASK_PROFILE_STEPS)
+    k1_err = inputs.check("train64")
+    return {**res, "grad_err": grad_err, "k1_err": k1_err, "k2_err": inputs.k2_err}
 
 
 def _record_knn():
@@ -2621,6 +2908,14 @@ def main():
     run_slice("unfused_slice", unfused, 0, want_fused=0)
     del unfused
 
+    # 64 keypoints, the fused kernels' limit: K1 and K2 there, then the chain
+    t0 = time.perf_counter()
+    stages64 = k64_stages()
+    log("slice64_setup", seconds=time.perf_counter() - t0, t_steps=T64, n=N64, fused=True)
+    k64 = phase_k64(stages64, dev)
+    slice64 = phase_slice64(stages64, dev)
+    del stages64
+
     # the training tasks: the first three on one synthetic airplane tree with
     # normals, the SAP upsampler on a tree of DPSR grids
     with tempfile.TemporaryDirectory() as tmp:
@@ -2630,7 +2925,8 @@ def main():
                                      num_points=3000, shape_variety=True, with_psr=False)
         log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
         sap_root = os.path.join(tmp, "shapenet_psr_sap")
-        tasks = {"kp": phase_train(dev, root, tmp), "ae": phase_train_ae(dev, root, tmp),
+        tasks = {"kp": phase_train(dev, root, tmp), "kp64": phase_train64(dev, root, tmp),
+                 "ae": phase_train_ae(dev, root, tmp),
                  "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp),
                  "x0": phase_train_x0(dev, root, tmp), **phase_train_cond(dev, root, tmp),
                  **phase_train_device_data(dev, root, sap_root, tmp),
@@ -2680,6 +2976,7 @@ def main():
         "launches": launches.get("fps", 0), "max_abs_err": float(max_err),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "launches_train": per_task("fps"),
+        "launches_slice64": slice64["launches"].get("fps", 0),
         "launches_eval": per_eval("fps"), "launches_cli": per_cli("fps"),
         "launches_ddp_per_rank_step": per_rank_step("fps"),
         "decode_ms": fps_sum(DECODE_FPS, BATCH)[0],
@@ -2695,30 +2992,39 @@ def main():
         "source": "slide_tpu_torch/csrc/fused_denoiser.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
         "launches": launches.get("fused_denoiser", 0),
-        "max_abs_err": max(k1_err, eval_k1_err, tasks["x0"]["k1_err"],
+        "max_abs_err": max(k1_err, eval_k1_err, tasks["x0"]["k1_err"], tasks["kp64"]["k1_err"],
+                           slice64["k1_err"], *(r["k1_err"] for r in k64.values()),
                            *(res["k1_err"] for res in ddp.values())),
         "ms": sum(r[0] for r in nets) / 2, "plain_ms": sum(r[1] for r in nets) / 2,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
         "module_ms": sum(r[2] for r in nets) / 2,
         "per_net": {name: {"ms": r[0], "plain_ms": r[1], "module_ms": r[2],
-                           "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1]}
-                    for name, r in zip(("kp", "lat"), nets)},
+                           "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1],
+                           "scratch_bytes_ms": r[4]}
+                    for name, r in [*zip(("kp", "lat"), nets),
+                                    *((f"{n}_n{N64}", k64[n]["k1"]) for n in ("kp", "lat"))]},
         "launches_train": per_task("fused_denoiser"),
+        "launches_slice64": slice64["launches"].get("fused_denoiser", 0),
         "launches_eval": per_eval("fused_denoiser"), "launches_cli": per_cli("fused_denoiser"),
         "launches_ddp_per_rank_step": per_rank_step("fused_denoiser")}, {
         "name": "fused_denoiser_bwd", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser_bwd.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:621",
         "launches": tasks["kp"]["launches"].get("fused_denoiser_bwd", 0),
-        "max_abs_err": max(k2_err, *(res["k2_err"] for res in ddp.values())),
+        "max_abs_err": max(k2_err, tasks["kp64"]["k2_err"], *(r["k2_err"] for r in k64.values()),
+                           *(res["k2_err"] for res in ddp.values())),
         "ms": k2_main[0], "plain_ms": k2_main[1],
         "bound_ms": bound(k2_main[2])[0], "bound_by": bound(k2_main[2])[1],
         "library_ms": None, "launches_train": per_task("fused_denoiser_bwd"),
+        "launches_slice64": slice64["launches"].get("fused_denoiser_bwd", 0),
         "launches_cli": per_cli("fused_denoiser_bwd"),
         "launches_ddp_per_rank_step": per_rank_step("fused_denoiser_bwd"),
-        "per_net": {f"{name}_b{b}": {"ms": r[0], "plain_ms": r[1],
-                                     "bound_ms": bound(r[2])[0], "bound_by": bound(r[2])[1]}
-                    for (name, b), r in k2.items()}}]}), flush=True)
+        "per_net": {key: {"ms": r[0], "plain_ms": r[1],
+                          "bound_ms": bound(r[2])[0], "bound_by": bound(r[2])[1],
+                          "scratch_bytes_ms": r[3]}
+                    for key, r in [*((f"{name}_b{b}", r) for (name, b), r in k2.items()),
+                                   *((f"{n}_n{N64}", k64[n]["k2"]) for n in ("kp", "lat"))]}}]}),
+          flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,8 +48,8 @@
 //     every d W = sum over the batch of X_b^T dY_b and d b = sum of dY_b:
 //     one grouped launch over all layers (a list of jobs and their blocks,
 //     a 128 x 128 output tile and a depth part each, from the plan), depth =
-//     the batch's rows (up to 8192), 3xTF32; a third launch sums the parts
-//     in order.  No per-cloud partials of the weights;
+//     the batch's rows (131072 at 64 points and batch 32), 3xTF32; a third
+//     launch sums the parts in order.  No per-cloud partials of the weights;
 //   - deterministic: no atomics; every sum in a fixed order; two launches
 //     give equal results.  kNN picks are recomputed from the distances
 //     (rounded as K1 rounds them) and carry no gradient; the clamps (the
@@ -313,26 +313,27 @@ __device__ __noinline__ void att_fwd(Ctx& cx, const Bwd& bw, const Att& a, int f
 }
 
 // K1's kNN for every point of the cloud (each block all of them): k rounds of
-// masked argmin over its distance row, ties to the lowest index.
+// masked argmin over its distance row, ties to the lowest index, the taken
+// points in a 64-bit mask (K1's knn_select).
 __device__ __noinline__ void knn_all(const Bwd& bw, int n, int k) {
     const Spec2& s2 = *bw.s2;
     const float* dist = fused_smem + s2.dist;
     int* knn = reinterpret_cast<int*>(fused_smem + s2.knn);
     if (TID < n) {
         const int i = TID;
-        unsigned taken = 0u;
+        uint64_t taken = 0ull;
         for (int s = 0; s < k; ++s) {
             int best = -1;
             float bd = 0.0f;
             for (int j = 0; j < n; ++j) {
-                if ((taken >> j) & 1u) continue;
+                if ((taken >> j) & 1ull) continue;
                 const float dj = dist[i * n + j];
                 if (best < 0 || dj < bd) {
                     best = j;
                     bd = dj;
                 }
             }
-            taken |= 1u << best;
+            taken |= 1ull << best;
             knn[i * s2.kmax + s] = best;
         }
     }

@@ -47,11 +47,14 @@ the tape over the whole batch (`_k2_jobs`; plain version
 0, GroupNorm variance at 0) are `torch.maximum`, whose gradient at a tie is
 0.5, as `jnp.maximum`'s is; K2 follows the same rule.
 
-Limits of both kernels (`limits_error`): N <= 32 points, at most 4 levels,
+Limits of both kernels (`limits_error`): N <= 64 points, at most 4 levels,
 widths up to 1024 (the t / class embeddings included), at most 32
-GroupNorm groups and MLPs of at most 6 layers.  A config past them is
-outside the fused scope: `make_fused_net_fn` and `make_fused_train_fn`
-return None for it.
+GroupNorm groups and MLPs of at most 6 layers (the JAX package's Pallas
+kernels have none of them).  `make_fused_net_fn` and `make_fused_train_fn`
+return None outside the fused architecture or where `build_spec` refuses
+the cloud size, as the JAX package's do (the module runs); a config inside
+both but past a limit raises on every device: the caller passes
+fused=False.
 """
 
 from __future__ import annotations
@@ -71,7 +74,11 @@ _EPS = 1e-5
 # limits of csrc/fused_denoiser.cu (its kMax* constants)
 MAX_LAYERS = 6
 MAX_LEVELS = 4
-MAX_POINTS = 32
+# 64 points: the kNN's mask of taken points is one 64-bit word, and K2's tape
+# grows with the grouped rows, N^2 at the shipped presets (SA k = N): the
+# latent net's is 73.7M floats a cloud at 64 points (9.4 GB for a training
+# batch of 32) and would be 284M at 128 (36 GB of the H100's 80)
+MAX_POINTS = 64
 MAX_VEC = 1024
 MAX_GROUPS = 32
 N_GRAD_BUFFERS = 6          # K2's row-sized gradient buffers
@@ -206,7 +213,8 @@ def limits_error(spec: Mapping) -> Optional[str]:
     """Which limit of the fused kernels (K1 and K2) `spec` (a `build_spec`)
     breaks, or None when it is inside them."""
     if spec["n"] > MAX_POINTS:
-        return f"the fused kernels hold at most {MAX_POINTS} points, got {spec['n']}"
+        return (f"the fused kernels hold at most {MAX_POINTS} points (their kNN mask is "
+                f"one 64-bit word; K2's tape grows as N^2), got {spec['n']}")
     if len(spec["sa"]) > MAX_LEVELS or len(spec["fp"]) > MAX_LEVELS:
         return f"the fused kernels hold at most {MAX_LEVELS} levels"
     widths = [spec["t4"], spec["cls"], spec["head_in"], 128, spec["out_dim"]]
@@ -225,17 +233,38 @@ def limits_error(spec: Mapping) -> Optional[str]:
     return None
 
 
+def _scope(config: Mapping[str, Any], n_points: int) -> tuple[Optional[dict], Optional[str]]:
+    """(`build_spec` of `config` at `n_points`, or None where the
+    architecture or the spec's channel arithmetic refuses it; why `config`
+    is outside the fused scope, or None when the fused kernels take it)."""
+    if not supports_config(config):
+        return None, "the architecture is outside the fused denoiser's scope"
+    try:
+        spec = build_spec(config, n_points)
+    except ValueError as e:
+        return None, str(e)
+    return spec, limits_error(spec)
+
+
 def scope_error(config: Mapping[str, Any], n_points: int) -> Optional[str]:
     """Why `config` at `n_points` points is outside the fused scope (the
     architecture, the spec's channel arithmetic or a kernel limit), or None
     when the fused kernels take it."""
-    if not supports_config(config):
-        return "the architecture is outside the fused denoiser's scope"
-    try:
-        spec = build_spec(config, n_points)
-    except ValueError as e:
-        return str(e)
-    return limits_error(spec)
+    return _scope(config, n_points)[1]
+
+
+def _kernel_spec(config: Mapping[str, Any], n_points: int) -> Optional[dict]:
+    """The spec the fused kernels run for `config` at `n_points`; None
+    outside the fused architecture or where `build_spec` refuses the cloud
+    size, as the JAX package's `make_fused_*_fn` return None there (the
+    module runs).  Past a limit of the kernels (`limits_error`; the JAX
+    package's Pallas kernels have none) it raises on every device: the
+    caller passes fused=False to run the module."""
+    spec, err = _scope(config, n_points)
+    if spec is not None and err is not None:
+        raise ValueError(f"the config is outside the fused kernels' scope ({err}); pass "
+                         f"fused=False to run the module")
+    return None if err else spec
 
 
 # ---------------------------------------------------------------------------
@@ -396,15 +425,17 @@ class PackedNet:
     def scratch_for(self, batch: int) -> torch.Tensor:
         floats = batch * self.layout["cloud_floats"]
         if self.scratch is None or self.scratch.numel() < floats:
-            self.scratch = torch.empty(floats, dtype=torch.float32,
-                                       device=self.flat.device)
+            self.scratch = None          # freed before its successor is made
+            self.scratch = _device_scratch(floats, self.flat.device, "K1", batch,
+                                           self.layout["cloud_floats"], self.layout["n"])
         return self.scratch
 
     def bwd_scratch_for(self, batch: int) -> torch.Tensor:
         floats = batch * self.layout2["bwd_floats"]
         if self.bwd_scratch is None or self.bwd_scratch.numel() < floats:
-            self.bwd_scratch = torch.empty(floats, dtype=torch.float32,
-                                           device=self.flat.device)
+            self.bwd_scratch = None
+            self.bwd_scratch = _device_scratch(floats, self.flat.device, "K2", batch,
+                                               self.layout2["bwd_floats"], self.layout["n"])
         return self.bwd_scratch
 
     def bwd_buffers(self) -> None:
@@ -424,6 +455,20 @@ class PackedNet:
         """The buffer packed from the parameters as they are now, with
         autograd's graph back to them."""
         return pack_flat(self.sources)
+
+
+def _device_scratch(floats: int, device, kernel: str, batch: int, per_cloud: int,
+                    n: int) -> torch.Tensor:
+    """`floats` fp32 of a kernel's per-cloud scratch on `device`; raises
+    `torch.cuda.OutOfMemoryError` naming the size when the card cannot hold
+    it (nothing falls back to the module)."""
+    try:
+        return torch.empty(floats, dtype=torch.float32, device=device)
+    except torch.cuda.OutOfMemoryError as e:
+        raise torch.cuda.OutOfMemoryError(
+            f"{kernel} needs {per_cloud} floats of device scratch a cloud at {n} points: "
+            f"{4 * floats / 2**30:.2f} GiB for a batch of {batch}, more than {device} "
+            f"holds now; run a smaller batch") from e
 
 
 def pack_flat(sources) -> torch.Tensor:
@@ -1369,13 +1414,13 @@ def fused_forward(spec: Mapping, packed: PackedNet, pc: torch.Tensor,
 def make_fused_net_fn(config: Mapping[str, Any], net: ConditionalPointNet2,
                       n_points: int):
     """`(x, ts, label) -> eps` over `net`'s weights packed once, or None when
-    the config is outside the fused scope (`scope_error`: e.g. npoint < N or
-    K > N at this cloud size, or more points than the kernels hold).  The
-    timestep and class embeddings run `net`'s own modules; the rest is
-    `fused_forward`."""
-    if scope_error(config, n_points) is not None:
+    the config is outside the fused scope (`_kernel_spec`: e.g. npoint < N
+    or K > N at this cloud size; past the kernels' limits it raises).  The
+    timestep and class embeddings run `net`'s own modules; the
+    rest is `fused_forward`."""
+    spec = _kernel_spec(config, n_points)
+    if spec is None:
         return None
-    spec = build_spec(config, n_points)
     packed = pack_weights(net, spec)
 
     def net_fn(x, ts, label):
@@ -1400,10 +1445,11 @@ def make_fused_train_fn(config: Mapping[str, Any], net: ConditionalPointNet2,
     autograd; their gradients arrive through d(t4) and d(cls).  The weights
     reach the core through the packed buffer, built from the live
     parameters on every call (`PackedNet.live_flat`), so d(flat) flows back
-    to each parameter by autograd.  The core is K1 + K2 on the card."""
-    if scope_error(config, n_points) is not None:
+    to each parameter by autograd.  The core is K1 + K2 on the card.  Past
+    the kernels' limits it raises (`_kernel_spec`)."""
+    spec = _kernel_spec(config, n_points)
+    if spec is None:
         return None
-    spec = build_spec(config, n_points)
     packed = pack_weights(net, spec)
 
     def apply(x, ts, label):

@@ -3,7 +3,7 @@
 
 One process per card: each joins the group with its rank, holds its rank's
 shard of every batch and its own copy of the network, and the training
-step all-reduces the gradients (`parallel/data_parallel.py`).  No global
+step all-reduces the gradients (`parallel/sharded.py`).  No global
 array is formed, as JAX's `make_array_from_process_local_data` forms one:
 a rank's batch is its rows only."""
 

@@ -149,20 +149,33 @@ def _random_fused_net(cfg, n, seed):
     return net, make_fused_net_fn(cfg, net, n)
 
 
+def _scope_config(case, n):
+    """The shipped preset of `case` at n points; past 32 points with SA
+    nsample [n, 16], so that the first level groups all points and the
+    second, as every KnnFP level, picks by kNN (picks past index 31)."""
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    cfg_fn = latent_ddpm_config if case.startswith("lat") else keypoint_ddpm_config
+    cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+    if n > 32:
+        cfg["architecture"]["nsample"] = [n, 16]
+    return cfg
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case,n,b", [
     ("lat32", 32, 3),     # 1024 grouped rows per cloud, widths up to 779: rows in device memory
     ("kp8", 8, 5),        # one point per block
     ("kp", 16, 300),      # 2400 blocks: several waves
+    ("kp64", 64, 16),     # the kernels' limit: 4096 grouped rows per cloud
+    ("lat64", 64, 3),
+    ("kp40", 40, 5),      # five points a block
 ])
 def test_k1_matches_plain_scope(cuda, case, n, b):
     # K1 at the edges of its stated scope, random weights, against its plain
     # version at atol 1e-4
-    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
     from slide_tpu_torch.models import fused_denoiser as fd
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg_fn = latent_ddpm_config if case.startswith("lat") else keypoint_ddpm_config
-    cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+    cfg = _scope_config(case, n)
     assert fd.scope_error(cfg, n) is None
     net, fn = _random_fused_net(cfg, n, seed=n + b)
     din = 3 + cfg["in_fea_dim"]
@@ -341,15 +354,16 @@ def test_k2_matches_plain(fused_nets, name, b, duplicates):
     ("lat32", 32, 3),     # 1024 grouped rows per cloud, widths up to 779
     ("kp8", 8, 5),        # two points per block
     ("kp", 16, 300),      # 300 clusters: several waves
+    ("kp64", 64, 16),     # the kernels' limit: 4096 grouped rows per cloud
+    ("lat64", 64, 3),
+    ("kp40", 40, 5),
 ])
 def test_k2_matches_plain_scope(cuda, case, n, b):
     # K2 at the edges of the fused scope (K1's), random weights, against the
     # float64 reference at the K2 gate; two launches equal
-    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
     from slide_tpu_torch.models import fused_denoiser as fd
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg_fn = latent_ddpm_config if case.startswith("lat") else keypoint_ddpm_config
-    cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+    cfg = _scope_config(case, n)
     assert fd.scope_error(cfg, n) is None
     net, fn = _random_fused_net(cfg, n, seed=n + b)
     din = 3 + cfg["in_fea_dim"]
@@ -379,6 +393,27 @@ def test_k2_matches_plain_scope(cuda, case, n, b):
         assert _k2_within(mine, want), f"{case} cloud {c}"
         want_flat += want[3]
     assert _k2_within(got[3:], [want_flat]), case
+
+
+@pytest.mark.cuda
+def test_past_64_points_the_card_raises(cuda):
+    # on the card, as on the CPU, nothing falls back to the module: 65 points
+    # raise naming the limit, and a scratch the card cannot hold raises naming its size
+    from slide_tpu_torch.configs import latent_ddpm_config
+    from slide_tpu_torch.models import ConditionalPointNet2
+    from slide_tpu_torch.models import fused_denoiser as fd
+    cfg = latent_ddpm_config("airplane", num_keypoints=65)["pointnet_config"]
+    net = ConditionalPointNet2(cfg).cuda()
+    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
+        fd.make_fused_net_fn(cfg, net, 65)
+    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
+        fd.make_fused_train_fn(cfg, net, 65)
+    cfg = latent_ddpm_config("airplane", num_keypoints=64)["pointnet_config"]
+    packed = fd.make_fused_train_fn(cfg, net, 64).packed
+    b = -(-100 * 2**30 // (4 * packed.layout2["bwd_floats"]))     # 100 GiB of tape
+    with pytest.raises(torch.cuda.OutOfMemoryError, match=f"K2 needs .*batch of {b}"):
+        packed.bwd_scratch_for(b)
+    assert packed.bwd_scratch is None
 
 
 @pytest.mark.cuda

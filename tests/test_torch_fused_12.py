@@ -1,0 +1,8 @@
+"""Part 12 of 13 of the tests in `torch_fused_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_fused_cases import (  # noqa: F401
+    one_thread, test_plain_matches_jax_fused_past_32_points,
+    test_fused_kp_chain_at_64_points_matches_jax,
+)

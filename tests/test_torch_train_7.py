@@ -1,0 +1,8 @@
+"""Part 7 of 8 of the tests in `torch_train_cases.py` (its
+docstring says what they hold against the JAX package and at which
+tolerance): see ROADMAP.md, "Keep it under its limit"."""
+
+from torch_train_cases import (  # noqa: F401
+    _one_torch_thread, test_fused_train_grads_at_64_points_match_jax,
+    test_train_route_at_the_point_limit,
+)

@@ -1,6 +1,7 @@
 """The port's fused denoiser (`slide_tpu_torch/models/fused_denoiser.py`) and
 FastDPM samplers (`slide_tpu_torch/diffusion/fastdpm.py`) against the JAX
-package on the CPU.  Inputs, weights and noise are made with numpy from a
+package on the CPU, at 16 points and, up to the kernels' limit, at 40 and
+64.  Inputs, weights and noise are made with numpy from a
 seed (JAX chains' noise is rebuilt from their key splits and replayed through
 `noise_fn`).  The JAX fused forward runs its own CPU path
 (`fused_forward(..., use_pallas=False)`, plain jnp, jitted).
@@ -12,6 +13,7 @@ flax module); 1e-4 on five-step chains; schedules equal; 1e-5 on FastDPM
 chains with a closed-form network."""
 
 import copy
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -31,7 +33,7 @@ from slide_tpu_torch.models import ConditionalPointNet2
 from slide_tpu_torch.models import fused_denoiser as tf
 from slide_tpu_torch.pipeline import DEFAULT_CKPTS
 from slide_tpu_torch.weights import load_flax_params, load_inference_params
-from torch_port_helpers import assert_close, flax_params_of, to_np
+from torch_port_helpers import assert_close, fast_jit, flax_params_of, to_np
 
 N = 16
 
@@ -80,16 +82,16 @@ def _case(name):
     return _CASES[name]
 
 
-def _inputs(b, din, seed):
+def _inputs(b, din, seed, n=N):
     rng = np.random.default_rng(seed)
-    x = rng.standard_normal((b, N, din)).astype(np.float32)
+    x = rng.standard_normal((b, n, din)).astype(np.float32)
     ts = rng.integers(0, 1000, b).astype(np.int32)
     label = rng.integers(0, 13, b).astype(np.int32)
     return x, ts, label
 
 
-def _jax_fused(cfg, params):
-    spec = jf.build_spec(cfg, N)
+def _jax_fused(cfg, params, n=N):
+    spec = jf.build_spec(cfg, n)
     weights = jf.extract_weights(params)
     return jax.jit(lambda x, ts, lbl: jf.fused_forward(spec, weights, x, ts, lbl,
                                                         use_pallas=False))
@@ -144,6 +146,8 @@ def test_packed_table_reads_back():
     ("kp", 16, 2, [0, 0]),       # fits in half the shared memory: two blocks per SM
     ("lat", 16, 1, [0, 0]),      # every activation in shared memory, one block per SM
     ("lat", 32, 2, [1, 1]),      # 1024 grouped rows per cloud: rows in device memory
+    ("kp", 64, 2, [1, 1]),       # 4096 grouped rows per cloud
+    ("lat", 64, 2, [1, 1]),
 ])
 def test_k1_plan_placements(cfg_fn, n, occupancy, rows_in_device_memory, monkeypatch):
     # K1's plan takes the first of K1_PLACEMENTS that fits, at the shipped
@@ -195,6 +199,109 @@ def test_duplicate_points_stay_finite(name):
     x[:, 7:] = x[:, 6:7]
     got = tf.make_fused_net_fn(cfg, net, N)(*_t(x, ts, label))
     assert got.shape == (2, N, din) and torch.isfinite(got).all()
+
+
+# ---------------------------------------------------------------------------
+# Past 32 points, up to the kernels' limit of 64: the narrow nets with every
+# level's npoint = N and SA nsample [N, 16], so that the first SA level groups
+# all points in index order and the second and the KnnFP levels pick by kNN
+
+def _wide_case(name, n):
+    """(config, port module, flax params, din) of a narrow net at n points."""
+    cfg = _narrow(j_kp_config if name == "kp" else j_lat_config, nsample=[n, 16])
+    cfg["architecture"]["npoint"] = [n, n]
+    net = _perturbed_net(cfg, seed=n + len(name))
+    return cfg, net, flax_params_of(net), 3 + cfg["in_fea_dim"]
+
+
+@pytest.mark.parametrize("name,n", [
+    ("kp", 64), ("lat", 64),
+    ("kp", 40),           # five points a block, not a power of two
+])
+def test_plain_matches_jax_fused_past_32_points(name, n):
+    cfg, net, params, din = _wide_case(name, n)
+    assert tf.scope_error(cfg, n) is None
+    x, ts, label = _inputs(3, din, seed=n, n=n)
+    x[:, n - 1] = x[:, 33]                 # a duplicate past index 31
+    spec = jf.build_spec(cfg, n)
+    weights = jf.extract_weights(params)
+    want = fast_jit(lambda xx, tt, ll: jf.fused_forward(spec, weights, xx, tt, ll,
+                                                         use_pallas=False), x, ts, label)
+    fn = tf.make_fused_net_fn(cfg, net, n)
+    assert fn.packed.layout["n"] == n
+    got = fn(*_t(x, ts, label))
+    assert got.shape == (3, n, din)
+    assert_close(want, got, atol=2e-5)
+
+
+@pytest.mark.parametrize("k", [8, 16, 64])
+def test_knn_ties_past_index_31_match_jax(k):
+    # integer coordinates (every distance exact in both packages) with
+    # copies of points below 32 placed past it: equal distances everywhere,
+    # decided by the lowest index.  The port's kNN (the stable sort the
+    # plain version and the kernels' masked argmin agree with) against JAX's
+    # `_topk_onehot`, the TPU kernel's
+    rng = np.random.default_rng(k)
+    xyz = rng.integers(-2, 3, (2, 64, 3)).astype(np.float32)
+    xyz[:, 40:48] = xyz[:, 3:11]
+    xyz[:, 63] = xyz[:, 0]
+    xyz[:, 33] = xyz[:, 5]
+    d = tf.pairwise_sqdist(torch.as_tensor(xyz))
+    jd = jf._pairwise_sqdist(jnp.asarray(xyz))
+    np.testing.assert_array_equal(to_np(d), np.asarray(jd))
+    want = np.asarray(jnp.argmax(jf._topk_onehot(jd, k), axis=-1))
+    got = to_np(tf.knn_from_sqdist(d, k))
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 32).any() and all(len(set(row)) == k for row in got.reshape(-1, k))
+
+
+def test_presets_are_in_the_fused_scope_up_to_64_points(monkeypatch):
+    # both shipped DDPM presets at every cloud size from 17 to 64 points:
+    # in the scope, and both kernels' plans fit the card; 65 names the limit.
+    # The plans do not read the weights' values: their copies (2 s a pack at
+    # full width) are left out
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    monkeypatch.setattr(tf, "pack_flat", lambda sources: torch.zeros(0))
+    monkeypatch.setattr(tf, "_transpose_gather", lambda rec, size: torch.zeros(0))
+    for cfg_fn in (keypoint_ddpm_config, latent_ddpm_config):
+        net = ConditionalPointNet2(cfg_fn("airplane")["pointnet_config"])
+        for n in range(17, 65):
+            cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+            assert tf.scope_error(cfg, n) is None, (cfg_fn.__name__, n)
+            lay = tf.pack_weights(net, tf.build_spec(cfg, n)).layout
+            assert lay["n"] == n and lay["smem_bytes"] <= tf.K1_SMEM_BYTES
+        cfg = cfg_fn("airplane", num_keypoints=65)["pointnet_config"]
+        assert "at most 64 points" in tf.scope_error(cfg, 65)
+
+
+# The packed tables of the shipped 16-point nets (sha256 of the int32
+# entries of TABLE, TABLE2, K2's jobs and its block list), as packed before
+# the kernels took 64 points: the main path's plans stay as they were
+PLANS_16 = {
+    "kp": ("0d012393c1dc49fdea166873bb928fd7e13cdeba55b23ac4fd585d711999be9b",
+           "f6f78771bd25dc665b0fef37b2ca8e8dd154a2639b97daf57d94d6aa406b4ae7",
+           "a883fa4f0ad2d0ab51cc27d4a18e80c8612a05136369001448a3b8bc0e58c815",
+           "6d4f2235a3fda710c0e8318cf8992a242bc94a3c4e3632c4eabd08bdb7da2c9a"),
+    "lat": ("b6bc5743610a361b201e6e9ecb0b4b2d94deda02cf76a8c48b3c6f9a79fa278a",
+            "f5be2b1c527f0d45ec3a220c20860b90e815dd7863b105bf60b96d65089ed006",
+            "86dd6312bf9a177cb035b3ae4feb633fac8ca87df8238812c7164ab9526feefa",
+            "85bde9b96069b50f7ec6f86d7d048f6cbb4f6cdd7648a921f8f7e30b462619c6"),
+}
+
+
+@pytest.mark.parametrize("name", ["kp", "lat"])
+def test_16_point_plans_are_unchanged(name):
+    from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
+    cfg = {"kp": keypoint_ddpm_config, "lat": latent_ddpm_config}[name](
+        "airplane")["pointnet_config"]
+    p = tf.pack_weights(ConditionalPointNet2(cfg), tf.build_spec(cfg, 16))
+
+    def sha(ints):
+        return hashlib.sha256(np.asarray(ints, np.int32).tobytes()).hexdigest()
+
+    got = (sha(tf.encode_table(tf.TABLE, p.layout)), sha(tf.encode_table(tf.TABLE2, p.layout2)),
+           sha(p.jobs.numpy()), sha(p.tiles.numpy()))
+    assert got == PLANS_16[name]
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +480,25 @@ def test_fused_kp_chain_matches_jax(sampler):
         got = tfast.fast_sampling(tnet, shape, tsched, dc,
                                   _replay(_chain_noise(key, shape, steps)), length=steps,
                                   sampling_method="step", schedule="quadratic", kappa=0.5)
+    np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-4)
+
+
+def test_fused_kp_chain_at_64_points_matches_jax():
+    # five DDPM steps of the narrow kp net at 64 points, JAX's draws replayed
+    cfg, net, params, _ = _wide_case("kp", 64)
+    b, steps, n = 2, 5, 64
+    label = np.array([3, 9], np.int32)
+    jfn = jf.make_fused_net_fn(cfg, params, n, use_pallas=False)
+    tfn = tf.make_fused_net_fn(cfg, net, n)
+    key = jax.random.key(9)
+    shape = (b, n, 3)
+    jsched = jeps.calc_diffusion_hyperparams(steps, 1e-4, 0.02)
+    want = fast_jit(lambda k: jeps.diffusion_sampling(
+        lambda x, ts: jfn(x, ts, jnp.asarray(label)), k, shape, jsched), key)
+    got = td.diffusion_sampling(lambda x, ts: tfn(x, ts, torch.as_tensor(label)), shape,
+                                td.calc_diffusion_hyperparams(steps, 1e-4, 0.02),
+                                _replay(_chain_noise(key, shape, steps)))
+    assert got.shape == shape
     np.testing.assert_allclose(to_np(got), np.asarray(want), atol=1e-4)
 
 

@@ -42,7 +42,7 @@ from slide_tpu_torch.models import ConditionalPointNet2
 from slide_tpu_torch.models import fused_denoiser as tf
 from slide_tpu_torch.ops import fps as tfps
 from slide_tpu_torch.ops import neighbors as tneighbors
-from slide_tpu_torch.pipeline import DEFAULT_CKPTS, build_stages
+from slide_tpu_torch.pipeline import DEFAULT_CKPTS, build_stages, generate
 from slide_tpu_torch.train import driver as tdriver
 from slide_tpu_torch.train import ema as tema
 from slide_tpu_torch.train.checkpoint import find_max_iter
@@ -148,20 +148,81 @@ def test_cuda_spec_struct_matches_the_table():
 
 
 def test_64_keypoints_are_outside_the_fused_scope():
-    cfg = keypoint_ddpm_config("airplane", num_keypoints=64)["pointnet_config"]
+    # the kernels hold up to 64 points: 65 keypoints are past them
+    cfg = keypoint_ddpm_config("airplane", num_keypoints=65)["pointnet_config"]
     # the JAX package takes it (its Pallas kernel has no such limit)
-    assert jf.supports_config(cfg) and jf.build_spec(cfg, 64)["n"] == 64
-    reason = tf.scope_error(cfg, 64)
-    assert reason is not None and "at most 32 points" in reason
+    assert jf.supports_config(cfg) and jf.build_spec(cfg, 65)["n"] == 65
+    reason = tf.scope_error(cfg, 65)
+    assert reason is not None and "at most 64 points" in reason
     net = ConditionalPointNet2(cfg)
-    assert tf.make_fused_net_fn(cfg, net, 64) is None
-    assert tf.make_fused_train_fn(cfg, net, 64) is None
-    with pytest.raises(ValueError, match="at most 32 points"):
-        tf.pack_weights(net, tf.build_spec(cfg, 64))
-    cfgs = {"kp": keypoint_ddpm_config(num_keypoints=64),
-            "lat": latent_ddpm_config(num_keypoints=64), "ae": autoencoder_config()}
-    with pytest.raises(ValueError, match="at most 32 points.*fused=False"):
+    # past a limit nothing falls back to the module, on any device: the
+    # constructors raise naming the limit and fused=False
+    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
+        tf.make_fused_net_fn(cfg, net, 65)
+    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
+        tf.make_fused_train_fn(cfg, net, 65)
+    with pytest.raises(ValueError, match="at most 64 points"):
+        tf.pack_weights(net, tf.build_spec(cfg, 65))
+    cfgs = {"kp": keypoint_ddpm_config(num_keypoints=65),
+            "lat": latent_ddpm_config(num_keypoints=65), "ae": autoencoder_config()}
+    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
         build_stages(1, 2, device="cpu", configs=cfgs)
+
+
+@pytest.mark.parametrize("n", [64, 65])
+def test_train_route_at_the_point_limit(n):
+    # the train step's fused route: taken at 64 points; at 65 fused=True
+    # raises naming fused=False (no silent module route), fused=False runs
+    # the module
+    cfg = keypoint_ddpm_config("airplane", num_keypoints=n)["pointnet_config"]
+    net = ConditionalPointNet2(cfg)
+    assert tdriver.maybe_fused_train_apply(cfg, n, net, fused=False) is None
+    if n <= tf.MAX_POINTS:
+        assert tdriver.maybe_fused_train_apply(cfg, n, net).packed.layout["n"] == n
+    else:
+        with pytest.raises(ValueError, match=f"at most {tf.MAX_POINTS} points.*fused=False"):
+            tdriver.maybe_fused_train_apply(cfg, n, net)
+
+
+def test_build_stages_fuses_64_keypoints():
+    # the shipped presets at 64 keypoints with the committed checkpoints (a
+    # ConditionalPointNet2's weights do not depend on N): both chains fused,
+    # one pass down to the meshes, each chain's result the module's
+    cfgs = {"kp": keypoint_ddpm_config(num_keypoints=64),
+            "lat": latent_ddpm_config(num_keypoints=64)}
+    stages = build_stages(1, 2, device="cpu", configs=cfgs)
+    assert stages.kp_fused.packed.layout["n"] == stages.lat_fused.packed.layout["n"] == 64
+    out = generate(stages, seed=0)
+    assert out["keypoints"].shape == (1, 64, 3) and out["features"].shape == (1, 64, 48)
+    assert out["points"].shape == (1, 2048, 3) and int(out["n_faces"][0]) > 0
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((2, 64, 51)),
+                        dtype=torch.float32)
+    ts, label = torch.tensor([5, 900]), torch.tensor([0, 0])
+    with torch.no_grad():
+        for net, fn, width in ((stages.kp_net, stages.kp_fused, 3),
+                               (stages.lat_net, stages.lat_fused, 51)):
+            want = net(x[..., :width], ts=ts, label=label)
+            np.testing.assert_allclose(fn(x[..., :width], ts, label).numpy(), want.numpy(),
+                                       atol=1e-4, rtol=1e-4)
+
+
+def test_scratch_past_the_card_raises_naming_its_size(monkeypatch):
+    # a kernel's per-cloud scratch that the card cannot hold: an out-of-memory
+    # error that names the floats a cloud and the batch (no module fallback)
+    cfg = keypoint_ddpm_config("airplane", num_keypoints=64)["pointnet_config"]
+    packed = tf.pack_weights(ConditionalPointNet2(cfg), tf.build_spec(cfg, 64))
+
+    def refuse(*args, **kwargs):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(torch, "empty", refuse)
+    floats = packed.layout2["bwd_floats"]
+    with pytest.raises(torch.cuda.OutOfMemoryError,
+                       match=f"K2 needs {floats} floats .* at 64 points.*batch of 300"):
+        packed.bwd_scratch_for(300)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="K1 needs .*batch of 16"):
+        packed.scratch_for(16)
+    assert packed.scratch is None and packed.bwd_scratch is None
 
 
 def test_build_stages_ema_idx_loads_the_raw_autoencoder():
@@ -302,6 +363,43 @@ def test_fused_train_grads_match_jax_and_the_module(name):
                ).backward()
     _assert_trees_close(fused_grads, _grads_tree(net), rtol=5e-3, atol=1e-4)
     np.testing.assert_allclose(fused_dx.numpy(), xm.grad.numpy(), rtol=5e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["kp", "lat"])
+def test_fused_train_grads_at_64_points_match_jax(name):
+    # K2's plain version (autograd through the plain forward, recomputed in
+    # `backward`) against jax.vjp of JAX's `_forward_tile` (its fused train
+    # fn off Pallas) at the kernels' limit: the first SA level groups all 64
+    # points, the second and the KnnFP levels pick by kNN.  No duplicate
+    # point: with x[:, 50] = x[:, 40] two relu inputs of the kp net lie within
+    # 3e-6 of 0 in float64, and the two packages' fp32 backwards pass them
+    # apart (either is right; the port's is within 1e-6 of float64 once they
+    # are resolved as `fused_backward_reference` resolves them, the K2 gate)
+    n = 64
+    cfg = _narrow(j_kp_config if name == "kp" else j_lat_config, nsample=[n, 16])
+    cfg["architecture"]["npoint"] = [n, n]
+    net = _perturbed_net(cfg, seed=n + len(name))
+    din = 3 + cfg["in_fea_dim"]
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, n, din)).astype(np.float32)
+    ts = np.array([7, 640], np.int32)
+    label = np.array([2, 11], np.int32)
+    tgt = 0.3
+
+    params = flax_params_of(net)
+    jfn = jf.make_fused_train_fn(cfg, n, use_pallas=False)
+    jloss, (jgrads, jdx) = jax.jit(jax.value_and_grad(
+        lambda p, xx: jnp.mean((jfn(p, xx, ts, label) - tgt) ** 2), argnums=(0, 1)))(
+            params, x)
+
+    apply = tf.make_fused_train_fn(cfg, net, n)
+    assert apply.packed.layout["n"] == n
+    xt = torch.as_tensor(x).requires_grad_(True)
+    loss = torch.mean((apply(xt, torch.as_tensor(ts), torch.as_tensor(label)) - tgt) ** 2)
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _assert_trees_close(_grads_tree(net), jgrads, rtol=5e-3, atol=1e-4)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jdx), rtol=5e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("name", ["kp", "lat_topk"])
