@@ -72,18 +72,29 @@ line each as soon as it ends:
            work at the fp32 FFMA rate, fp32_operations_ms); the clusters held
            at once and the waves; the launch's parts from the profiler: the
            chain, the weight-gradient kernel, the parts' sum, the gather
-  k64      K1 and K2 at 64 points, the kernels' limit: the kp and latent
+  k64      K1 and K2 at 64 points: the kp and latent
            presets at num_keypoints=64 with the committed weights.  K1 at
            batch 16 against its plain version (atol 1e-4), kernel, plain and
            module ms, the bound, the plan, and K1 planned at 1 and 2 blocks
-           per SM; K2 at batch 32: two launches equal, the float64 gate on the
-           first K64_CHECK clouds, ms, plain ms, the bound; beside each bound,
+           per SM; K2 at batch 32: two launches equal, the batch's launch held
+           to float64 in chunks of K64_CHECK clouds (`k2_gate_in_chunks`),
+           ms, plain ms, the bound; beside each bound,
            `scratch_bytes_ms`: the rows the kernel's own design moves through
            device memory (K1's rows in scratch, K2's tape), not in the bound
   slice64  the main path at 64 keypoints, fused, T64 steps a chain,
            counted from zero: exactly 2 x T64 K1, 13 FPS and no K2 launches,
            the keypoints (16, 64, 3), the slice's checks, seconds per stage;
            each K1 and FPS shape it launched against its plain version
+  k128     as k64 at 128 points, the kernels' limit, K2's float64 gate in
+           chunks of K128_CHECK clouds; K2 at batch 32 runs in the tiles of its plan
+           (`PackedNet.k2_tiles`: kp 2, latent 3), exactly one launch a tile;
+           K2 in tiles of K2_TILE_CHECK clouds against one launch of
+           K2_TILE_BATCH clouds: each cloud's rows equal, d flat within the
+           K2 gate
+  slice128 the main path at 128 keypoints, fused, with FastDPM at
+           FASTDPM_STEPS steps a chain: exactly 100 K1, 13 FPS and no K2,
+           the keypoints (16, 128, 3), the slice's checks, non-empty meshes;
+           each K1 and FPS shape against its plain version
   train    position-DDPM training at the kp preset's full width and batch
            32 on a synthetic airplane tree written here: one step's card
            gradient against the module's in float64 on the CPU at the card's
@@ -102,6 +113,12 @@ line each as soon as it ends:
            the gradient gate, TRAIN64_WARMUP warm-up and TRAIN64_STEPS counted
            steps with exactly one K3, one K1 and one K2 a step, the profiled
            run, each K1 / K2 / FPS shape against its plain version
+  train128 the same at 128 keypoints: the gradient gate on the batch's
+           first TRAIN128_CHECK clouds, TRAIN128_WARMUP warm-up and
+           TRAIN128_STEPS counted steps with exactly one K3 and one K1 a step
+           and one K2 a tile of K2's plan (2 at batch 32), the profiled run,
+           each shape against its plain version (K2's launch on the whole
+           batch held to float64 in chunks of TRAIN128_CHECK clouds)
   train_ae the point autoencoder at the shipped preset's full width and batch
            32 on the same tree: `encode` on the card (the committed AE
            weights, the posterior sampled) against the CPU on the same
@@ -239,6 +256,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -462,13 +480,12 @@ DDP_WORLD = 2
 DDP_BATCH = 32
 DDP_WARMUP, DDP_STEPS = 3, 20
 DDP_TIMEOUT = 300
-# 64 points, the fused kernels' limit (`fused_denoiser.MAX_POINTS`): the kp
-# and latent presets at num_keypoints=64 with the committed checkpoints (a
-# ConditionalPointNet2's weights do not depend on N).  `k64` holds K1 at
-# batch 16 and K2 at batch 32 against their plain versions, K2's float64
-# reference on the batch's first K64_CHECK clouds (a launch of their own,
-# whose rows of d pc, d t4 and d cls the batch's launch must equal);
-# `slice64` runs the chain at T64 steps; `train64` the kp preset's training
+# 64 points: the kp and latent presets at num_keypoints=64 with the
+# committed checkpoints (a ConditionalPointNet2's weights do not depend on
+# N).  `k64` holds K1 at batch 16 and K2 at batch 32 against their plain
+# versions, K2's launch on the batch held to float64 in chunks of K64_CHECK
+# clouds (`k2_gate_in_chunks`); `slice64` runs the chain at T64 steps;
+# `train64` the kp preset's training
 N64 = 64
 T64 = T_STEPS
 K64_CHECK = 4
@@ -477,6 +494,22 @@ TRAIN64_WARMUP, TRAIN64_STEPS = 3, 20
 # at batch 16; 512 -> 256 at 16 keypoints) and training's keypoint draw
 # (2049 -> 64 at batch 32)
 K64_FPS = [(2048, 256, BATCH), (2049, N64, TRAIN_BATCH)]
+# 128 points, the fused kernels' limit (`fused_denoiser.MAX_POINTS`), as at
+# 64: `k128` (K1 at batch 16; K2 at batch 32 in the tiles of its plan, the
+# float64 gate in chunks of K128_CHECK clouds; K2 in tiles of K2_TILE_CHECK clouds
+# against one launch of K2_TILE_BATCH clouds); `slice128` the chain with
+# FastDPM at FASTDPM_STEPS (at T=1000 it would take minutes); `train128`
+# the kp preset's training, its gradient gate on the batch's first
+# TRAIN128_CHECK clouds and K2's float64 gate in chunks of as many (the
+# float64 references of the whole batch would not fit the card)
+N128 = 128
+K128_CHECK = 2
+K2_TILE_BATCH, K2_TILE_CHECK = 8, 3
+TRAIN128_CHECK = 8
+TRAIN128_WARMUP, TRAIN128_STEPS = 3, 20
+# the FPS shapes new at 128 keypoints: the decode's first trim (4096 -> 256
+# at batch 16) and training's keypoint draw (2049 -> 128 at batch 32)
+K128_FPS = [(4096, 256, BATCH), (2049, N128, TRAIN_BATCH)]
 # published H100 SXM peaks (fp32 outside the tensor cores; dense TF32 on the
 # tensor cores; HBM3)
 PEAK_FP32_FLOPS = 67e12
@@ -530,7 +563,7 @@ def bound(parts) -> tuple[float, str]:
 def phase_k3(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(0)
     per_shape, max_err = {}, 0
-    shapes = ({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS} | set(K64_FPS)
+    shapes = ({(n, k, BATCH) for n, k in PASS_FPS} | {TRAIN_FPS} | set(K64_FPS) | set(K128_FPS)
               | {(n, k, TRAIN_BATCH) for n, k in ENCODER_FPS + SAP_FPS})
     for n, k, b in sorted(shapes):
         xyz = torch.randn((b, n, 3), generator=gen, device=dev)
@@ -977,6 +1010,61 @@ def k2_errors(got, want) -> dict:
     return errs
 
 
+def k2_gate_in_chunks(where: str, packed, pc, t4, cls, g, got, chunk: int, flat=None):
+    """K2's launch `got` on a batch held to float64 in chunks of at most
+    `chunk` clouds (the float64 references of a large batch at once would
+    not fit the card): each chunk in a launch of its own, whose rows of
+    d pc, d t4 and d cls the batch's launch must equal, that launch within
+    the K2 gate of `fused_backward_reference` (its relu ties resolved as the
+    launch did); then the batch's d flat, summed over its own tiles, within
+    the K2 gate of the chunks' float64 d flat summed (d flat is a sum over
+    clouds), `dflat_batch`.  Returns (per gradient the chunks' worst
+    `k2_errors` entry, and `dflat_batch`; the ties as [first cloud of the
+    chunk, relu call, flat index, float64 input])."""
+    b = pc.shape[0]
+    errs, ties, total = {}, [], None
+    for s in range(0, b, chunk):
+        e = min(b, s + chunk)
+        sub = [x[s:e].contiguous() for x in (pc, t4, cls, g)]
+        mine = fd.fused_backward_cuda(packed, *sub, flat)
+        for key, x, z in zip(("dpc", "dt4", "dcls"), got, mine):
+            if not torch.equal(x[s:e], z):
+                raise AssertionError(f"{where}: K2's {key} of clouds {s}-{e - 1} differs "
+                                     f"between the batch's launch and their own")
+        want, chunk_ties = fd.fused_backward_reference(packed, *sub, mine, flat, tol=K2_TOL)
+        chunk_errs = k2_errors(mine, want)
+        bad = [key for key, err in chunk_errs.items() if not err["ok"]]
+        if bad:
+            raise AssertionError(f"{where}: K2's {bad} of clouds {s}-{e - 1} differ from "
+                                 f"float64: {chunk_errs}")
+        for key, err in chunk_errs.items():
+            if key not in errs or err["of_bound"] > errs[key]["of_bound"]:
+                errs[key] = err
+        ties += [[s, *tie] for tie in chunk_ties]
+        total = want[3] if total is None else total + want[3]
+        del mine, want
+    err = float((got[3].double() - total).abs().max())
+    bound_ = K2_TOL * max(1.0, float(total.abs().max()))
+    errs["dflat_batch"] = {"max_abs": err, "of_bound": err / bound_,
+                           "ok": err <= bound_ and bool(torch.isfinite(got[3]).all())}
+    if not errs["dflat_batch"]["ok"]:
+        raise AssertionError(f"{where}: the batch's K2 d flat differs from the float64 sum "
+                             f"of its chunks': {errs['dflat_batch']}")
+    return errs, ties
+
+
+def k2_plain_in_tiles(packed, pc, t4, cls, g):
+    """K2's plain version over the tiles K2 runs (`PackedNet.k2_tiles`), d
+    flat summed over them: one autograd pass of a 128-point batch of 32
+    would not fit the card."""
+    parts = [fd.fused_backward_plain(packed, pc[s:e], t4[s:e], cls[s:e], g[s:e])
+             for s, e in packed.k2_tiles(pc.shape[0])]
+    dflat = parts[0][3]
+    for part in parts[1:]:
+        dflat = dflat + part[3]
+    return [torch.cat([part[i] for part in parts]) for i in range(3)] + [dflat]
+
+
 def k2_case(net, b: int, n: int, width: int, gen, dev, duplicates: bool = False):
     pc = torch.randn((b, n, width), generator=gen, device=dev)
     if duplicates:
@@ -1038,56 +1126,61 @@ def phase_k2(stages, dev) -> tuple[dict, float]:
     return res, worst
 
 
-def k64_stages():
-    """The main path's stages at 64 keypoints, fused, T64 steps a chain."""
-    return build_stages(BATCH, T64, configs={"kp": keypoint_ddpm_config(num_keypoints=N64),
-                                             "lat": latent_ddpm_config(num_keypoints=N64)})
+def stages_at(n: int, t_steps: int):
+    """The main path's stages at n keypoints, fused, t_steps a chain."""
+    return build_stages(BATCH, t_steps, configs={"kp": keypoint_ddpm_config(num_keypoints=n),
+                                                 "lat": latent_ddpm_config(num_keypoints=n)})
 
 
-def phase_k64(stages, dev) -> dict:
-    """K1 and K2 at 64 points, the kp and latent nets of the 64-point
+def phase_large(stages, dev, n: int, check: int) -> dict:
+    """K1 and K2 at n points (`k{n}`), the kp and latent nets of the n-point
     stages: K1 at batch 16 against its plain version (K1_ATOL), kernel,
     plain and module ms, the bound and its parts, its plan, and K1 planned
-    for one and for two blocks per SM (`k1_plan`'s fields); K2 at batch 32:
-    two launches equal, the float64 gate on the first K64_CHECK clouds, ms,
-    plain (fp32) ms, the bound, the profiler's parts.  Returns per net the
-    K1 (ms, plain ms, module ms, bound parts) and K2 (ms, plain ms, bound
-    parts)."""
-    gen = torch.Generator(device=dev).manual_seed(64)
+    for one and for two blocks per SM (`k1_plan`'s fields); K2 at batch 32
+    in the tiles its plan states: two launches equal, the batch's launch
+    held to float64 in chunks of `check` clouds (`k2_gate_in_chunks`), ms,
+    plain (fp32, in the same tiles) ms, the bound, the profiler's parts.
+    Where the batch takes more than one tile, also K2 in tiles of
+    K2_TILE_CHECK clouds against one launch of a batch that fits one tile:
+    rows equal, d flat within the K2 gate.  Returns per net the K1 (ms,
+    plain ms, module ms, bound parts, scratch ms) and K2 (ms, plain ms,
+    bound parts, scratch ms) figures and their errors."""
+    phase = f"k{n}"
+    gen = torch.Generator(device=dev).manual_seed(n)
     res = {}
     for name, net, fn, width in k1_nets(stages):
         lay = fn.packed.layout
-        if lay["n"] != N64:
-            raise AssertionError(f"k64 {name}: the packed net holds {lay['n']} points")
-        pc, ts, label, t4, cls = k1_inputs(net, BATCH, N64, width, gen, dev)
+        if lay["n"] != n:
+            raise AssertionError(f"{phase} {name}: the packed net holds {lay['n']} points")
+        pc, ts, label, t4, cls = k1_inputs(net, BATCH, n, width, gen, dev)
         with torch.no_grad():
             want = fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls)
             for occupancy in (1, 2):
                 try:
                     packed = pack_at(net, fn.spec, occupancy)
                 except ValueError as e:
-                    log("k64_k1_plan", net=name, blocks_per_sm=occupancy, fits=False,
+                    log(f"{phase}_k1_plan", net=name, blocks_per_sm=occupancy, fits=False,
                         why=str(e))
                     continue
                 got = fd.fused_forward_cuda(packed, pc, t4, cls)
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
-                    raise AssertionError(f"k64 {name} at {occupancy} blocks per SM: kernel "
-                                         f"and plain differ by {err}")
-                log("k64_k1_plan", net=name, blocks_per_sm=occupancy, fits=True,
+                    raise AssertionError(f"{phase} {name} at {occupancy} blocks per SM: "
+                                         f"kernel and plain differ by {err}")
+                log(f"{phase}_k1_plan", net=name, blocks_per_sm=occupancy, fits=True,
                     own=packed.layout["occupancy"] == lay["occupancy"],
                     smem_bytes=packed.layout["smem_bytes"],
                     max_clusters=k1_max_clusters(packed), stage_floats=packed.layout["stage"],
                     rows_in_device_memory=packed.layout["bglob"], batch=BATCH,
                     max_abs_err=err, atol=K1_ATOL,
-                    ms=cuda_ms(lambda: fd.fused_forward_cuda(packed, pc, t4, cls), 20))
+                    ms=cuda_ms(lambda: fd.fused_forward_cuda(packed, pc, t4, cls), 10))
                 del packed
             got = fd.fused_forward_cuda(fn.packed, pc, t4, cls)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             if not (err <= K1_ATOL and bool(torch.isfinite(got).all())):
-                raise AssertionError(f"k64 {name}: K1 and plain differ by {err}")
+                raise AssertionError(f"{phase} {name}: K1 and plain differ by {err}")
             ms = cuda_ms(lambda: fd.fused_forward_cuda(fn.packed, pc, t4, cls), 20)
             plain_ms = cuda_ms(lambda: fd.fused_forward_plain(fn.spec, fn.packed, pc, t4, cls),
                                5)
@@ -1095,7 +1188,7 @@ def phase_k64(stages, dev) -> dict:
         k1_parts = k1_bound_parts(lay, BATCH)
         k1_scratch = k1_scratch_ms(lay, BATCH)
         flops, _, products = _table_work(lay, BATCH)
-        log("k64_k1", net=name, n=N64, batch=BATCH, shape=list(pc.shape), max_abs_err=err,
+        log(f"{phase}_k1", net=name, n=n, batch=BATCH, shape=list(pc.shape), max_abs_err=err,
             atol=K1_ATOL, ms=ms, plain_ms=plain_ms, module_ms=module_ms,
             bound_ms=bound(k1_parts)[0], bound_by=bound(k1_parts)[1], bytes_ms=k1_parts[0],
             operations_ms=k1_parts[1], fp32_operations_ms=fp32_ms(flops),
@@ -1106,34 +1199,54 @@ def phase_k64(stages, dev) -> dict:
                   "max_clusters": k1_max_clusters(fn.packed)})
         del want, got
 
-        pc, t4, cls, g = k2_case(net, TRAIN_BATCH, N64, width, gen, dev)
+        pc, t4, cls, g = k2_case(net, TRAIN_BATCH, n, width, gen, dev)
+        tiles = fn.packed.k2_tiles(TRAIN_BATCH)
+        _build.launch_counts.clear()
         got = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+        if _build.launch_counts["fused_denoiser_bwd"] != len(tiles):
+            raise AssertionError(f"{phase} {name}: {_build.launch_counts['fused_denoiser_bwd']} "
+                                 f"K2 launches for the {len(tiles)} tiles of its plan")
         again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
-        sub = [x[:K64_CHECK].contiguous() for x in (pc, t4, cls, g)]
-        mine = fd.fused_backward_cuda(fn.packed, *sub)
         torch.cuda.synchronize()
         for key, x, z in zip(("dpc", "dt4", "dcls", "dflat"), got, again):
             if not torch.equal(x, z):
-                raise AssertionError(f"k64 {name}: K2's {key} differs between two launches")
-        for key, x, z in zip(("dpc", "dt4", "dcls"), got, mine):
-            if not torch.equal(x[:K64_CHECK], z):
-                raise AssertionError(f"k64 {name}: K2's {key} of the first {K64_CHECK} "
-                                     f"clouds differs from their own launch's")
-        want, ties = fd.fused_backward_reference(fn.packed, *sub, mine, tol=K2_TOL)
-        errs = k2_errors(mine, want)
-        bad = [key for key, e in errs.items() if not e["ok"]]
-        if bad:
-            raise AssertionError(f"k64 {name}: K2's {bad} differ from float64: {errs}")
-        del want, mine, again
+                raise AssertionError(f"{phase} {name}: K2's {key} differs between two launches")
+        del again
+        errs, ties = k2_gate_in_chunks(f"{phase} {name}", fn.packed, pc, t4, cls, g, got, check)
+        tiled = {}
+        if len(tiles) > 1:
+            # a batch that fits one tile, in one launch and in tiles of
+            # K2_TILE_CHECK clouds (K2's tape budget lowered to theirs)
+            one = [x[:K2_TILE_BATCH].contiguous() for x in (pc, t4, cls, g)]
+            whole = fd.fused_backward_cuda(fn.packed, *one)
+            budget = fd.K2_TAPE_FLOATS
+            fd.K2_TAPE_FLOATS = K2_TILE_CHECK * fn.packed.layout2["bwd_floats"]
+            try:
+                split = fn.packed.k2_tiles(K2_TILE_BATCH)
+                parts = fd.fused_backward_cuda(fn.packed, *one)
+            finally:
+                fd.K2_TAPE_FLOATS = budget
+            torch.cuda.synchronize()
+            rows_equal = all(torch.equal(x, z) for x, z in zip(whole[:3], parts[:3]))
+            dflat_err = float((parts[3] - whole[3]).abs().max())
+            dflat_bound = K2_TOL * max(1.0, float(whole[3].abs().max()))
+            tiled = {"batch": K2_TILE_BATCH, "clouds": K2_TILE_CHECK, "rows_equal": rows_equal,
+                     "tiles": len(split),
+                     "dflat_max_abs": dflat_err, "dflat_bound": dflat_bound}
+            if not (rows_equal and dflat_err <= dflat_bound):
+                raise AssertionError(f"{phase} {name}: K2 in tiles differs from one launch: "
+                                     f"{tiled}")
+            del whole, parts
         ms2 = cuda_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g), 5)
-        plain_ms2 = cuda_ms(lambda: fd.fused_backward_plain(fn.packed, pc, t4, cls, g), 2)
+        plain_ms2 = cuda_ms(lambda: k2_plain_in_tiles(fn.packed, pc, t4, cls, g), 2)
         launch = k2_parts_ms(lambda: fd.fused_backward_cuda(fn.packed, pc, t4, cls, g))
         k2_parts = k2_bound_parts(lay, TRAIN_BATCH)
         k2_scratch = k2_scratch_ms(lay, TRAIN_BATCH)
         lay2 = fn.packed.layout2
         clusters = k2_max_clusters(fn.packed)
-        log("k64_k2", net=name, n=N64, batch=TRAIN_BATCH, shape=list(pc.shape),
-            checked_clouds=K64_CHECK, err=errs, ties=ties, repeat_equal=True, ms=ms2,
+        log(f"{phase}_k2", net=name, n=n, batch=TRAIN_BATCH, shape=list(pc.shape),
+            tiles=tiles, checked_in_chunks_of=check, err=errs, ties=ties, repeat_equal=True,
+            tiled_vs_one_launch=tiled, ms=ms2,
             plain_ms=plain_ms2, bound_ms=bound(k2_parts)[0], bound_by=bound(k2_parts)[1],
             bytes_ms=k2_parts[0], operations_ms=k2_parts[1],
             fp32_operations_ms=fp32_ms(3 * _table_work(lay, TRAIN_BATCH)[0]),
@@ -1141,30 +1254,32 @@ def phase_k64(stages, dev) -> dict:
             bwd_floats=lay2["bwd_floats"],
             blocks_per_cloud=lay2["cluster"], blocks_per_sm=lay2["occupancy"],
             smem_bytes=lay2["smem_bytes"], max_clusters=clusters,
-            waves=-(-TRAIN_BATCH // clusters), parts_ms=launch,
+            waves=sum(-(-(e - s) // clusters) for s, e in tiles), parts_ms=launch,
             weight_grad_splits=fn.packed.splits)
         res[name] = {"k1": (ms, plain_ms, module_ms, k1_parts, k1_scratch),
                      "k2": (ms2, plain_ms2, k2_parts, k2_scratch), "k2_err": max(
-                         e["max_abs"] for e in errs.values()), "k1_err": err}
+                         e["max_abs"] for e in errs.values()), "k1_err": err,
+                     "k2_tiles": len(tiles)}
         del got, pc, t4, cls, g
+        fn.packed.bwd_scratch = None
         torch.cuda.empty_cache()
     return res
 
 
-def phase_slice64(stages, dev) -> dict:
-    """The main path at 64 keypoints, counted from zero: exactly 2 x T64 K1,
-    len(PASS_FPS) K3 and no K2 launches, the keypoints (16, 64, 3) and their
-    features (16, 64, latent_dim), the slice's checks (`run_slice`); every
-    K1 and FPS shape it launched against its plain version."""
+def phase_slice_at(phase: str, stages, n: int, want_fused: int) -> dict:
+    """The main path at n keypoints, counted from zero: exactly `want_fused`
+    K1, len(PASS_FPS) K3 and no K2 launches, the keypoints (16, n, 3) and
+    their features (16, n, latent_dim), the slice's checks (`run_slice`);
+    every K1 and FPS shape it launched against its plain version."""
     inputs = KernelInputs()
     with inputs.recording():
-        out, launches = run_slice("slice64", stages, 0, want_fused=2 * T64)
-    shapes_ok = (tuple(out["keypoints"].shape) == (BATCH, N64, 3)
-                 and tuple(out["features"].shape) == (BATCH, N64, stages.latent_dim))
+        out, launches = run_slice(phase, stages, 0, want_fused=want_fused)
+    shapes_ok = (tuple(out["keypoints"].shape) == (BATCH, n, 3)
+                 and tuple(out["features"].shape) == (BATCH, n, stages.latent_dim))
     if not shapes_ok or launches.get("fused_denoiser_bwd", 0):
-        raise AssertionError(f"slice64: keypoints {list(out['keypoints'].shape)}, features "
+        raise AssertionError(f"{phase}: keypoints {list(out['keypoints'].shape)}, features "
                              f"{list(out['features'].shape)}, launches {launches}")
-    k1_err = inputs.check("slice64")
+    k1_err = inputs.check(phase)
     return {"launches": launches, "seconds": out["seconds"], "k1_err": k1_err}
 
 
@@ -1411,31 +1526,40 @@ def phase_train(dev, root: str, tmp: str) -> dict:
     return {**res, "grad_err": grad_err}
 
 
-def phase_train64(dev, root: str, tmp: str) -> dict:
-    """Position-DDPM training at 64 keypoints (the kp preset at full width,
-    batch 32) through `train_position_ddpm`: one step's gradient as `train`
-    holds it, then TRAIN64_WARMUP warm-up and TRAIN64_STEPS counted steps
-    (exactly one K3, one K1 and one K2 a step) and a profiled run; every K1,
-    K2 and FPS shape it launched against its plain version."""
-    cfg = _task_config(keypoint_ddpm_config("airplane", num_keypoints=N64,
+def phase_train_at(dev, root: str, tmp: str, n: int, check: int, warmup: int,
+                   steps: int) -> dict:
+    """Position-DDPM training at n keypoints (`train{n}`: the kp preset at
+    full width, batch 32) through `train_position_ddpm`: one step's gradient
+    as `train` holds it, on the batch's first `check` clouds; then `warmup`
+    warm-up and `steps` counted steps (exactly one K3 and one K1 a step, and
+    one K2 a tile of K2's plan for the batch) and a profiled run; every K1,
+    K2 and FPS shape it launched against its plain version (K2's float64
+    gate on the first `check` clouds)."""
+    phase = f"train{n}"
+    cfg = _task_config(keypoint_ddpm_config("airplane", num_keypoints=n,
                                             batch_size=TRAIN_BATCH), root,
-                       os.path.join(tmp, "exp_kp64"))
+                       os.path.join(tmp, f"exp_kp{n}"))
     batch = _first_batch(cfg, dev)
     x = train_driver.sample_train_keypoints(batch["points"], cfg["shapenet_psr_dataset_config"])
-    if tuple(x.shape) != (TRAIN_BATCH, N64, 3):
-        raise AssertionError(f"train64: keypoints {list(x.shape)}")
+    if tuple(x.shape) != (TRAIN_BATCH, n, 3):
+        raise AssertionError(f"{phase}: keypoints {list(x.shape)}")
     grad_err = check_train_gradient(
-        "train64", cfg["pointnet_config"], x, batch["label"],
+        phase, cfg["pointnet_config"], x[:check], batch["label"][:check],
         lambda net_fn, xx, ts, z: diffusion_training_loss(
             net_fn, xx, calc_diffusion_hyperparams(1000, 1e-4, 0.02, xx.device), ts=ts, z=z),
         dev)
+    # the tiles K2's plan states for the batch
+    tiles = len(fd.make_fused_train_fn(cfg["pointnet_config"],
+                                       ConditionalPointNet2(cfg["pointnet_config"]),
+                                       n).packed.k2_tiles(TRAIN_BATCH))
     inputs = KernelInputs()
     with inputs.recording():
-        res = run_task("train64", train_driver.train_position_ddpm, cfg, TRAIN64_WARMUP,
-                       TRAIN64_STEPS, {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": 1},
+        res = run_task(phase, train_driver.train_position_ddpm, cfg, warmup, steps,
+                       {"fps": 1, "fused_denoiser": 1, "fused_denoiser_bwd": tiles},
                        TASK_PROFILE_STEPS)
-    k1_err = inputs.check("train64")
-    return {**res, "grad_err": grad_err, "k1_err": k1_err, "k2_err": inputs.k2_err}
+    k1_err = inputs.check(phase, k2_clouds=check)
+    return {**res, "grad_err": grad_err, "k1_err": k1_err, "k2_err": inputs.k2_err,
+            "k2_tiles": tiles}
 
 
 def _record_knn():
@@ -2375,11 +2499,13 @@ class KernelInputs:
             fps_mod.fps_cuda, fd.fused_forward_cuda = real_fps, real_k1
             fd.fused_backward_cuda = real_k2
 
-    def check(self, phase: str) -> float:
+    def check(self, phase: str, k2_clouds: Optional[int] = None) -> float:
         """Each kept shape's kernel against its plain version: FPS indices
         equal, K1 within K1_ATOL, K2 as `phase_k2` holds it (its plain
-        version in float64, the relu ties resolved as K2 did, K2_TOL).
-        Returns K1's largest error (K2's: `k2_err`)."""
+        version in float64, the relu ties resolved as K2 did, K2_TOL); with
+        `k2_clouds`, the batch's launch held to float64 in chunks of as many
+        clouds (`k2_gate_in_chunks`).  Returns K1's largest error (K2's:
+        `k2_err`)."""
         for (b, n, d, k, forced), (xyz, start) in sorted(self.fps.items()):
             got = fps_mod.fps_cuda(xyz, k, start, forced)
             want = fps_mod.fps_plain(xyz, k, start, forced)
@@ -2403,10 +2529,14 @@ class KernelInputs:
         self.k2_err = 0.0
         for shape, (packed, pc, t4, cls, g, flat) in sorted(self.k2.items()):
             got = fd.fused_backward_cuda(packed, pc, t4, cls, g, flat)
-            want, ties = fd.fused_backward_reference(packed, pc, t4, cls, g, got, flat,
-                                                     tol=K2_TOL)
-            torch.cuda.synchronize()
-            errs = k2_errors(got, want)
+            if k2_clouds is not None and k2_clouds < pc.shape[0]:
+                errs, ties = k2_gate_in_chunks(f"{phase}: K2 at {list(shape)}", packed, pc,
+                                               t4, cls, g, got, k2_clouds, flat)
+            else:
+                want, ties = fd.fused_backward_reference(packed, pc, t4, cls, g, got, flat,
+                                                         tol=K2_TOL)
+                torch.cuda.synchronize()
+                errs = k2_errors(got, want)
             self.k2_err = max([self.k2_err] + [e["max_abs"] for e in errs.values()])
             log(f"{phase}_k2", shape=list(shape), err=errs, ties=ties)
             if not all(e["ok"] for e in errs.values()):
@@ -2910,11 +3040,22 @@ def main():
 
     # 64 keypoints, the fused kernels' limit: K1 and K2 there, then the chain
     t0 = time.perf_counter()
-    stages64 = k64_stages()
+    stages64 = stages_at(N64, T64)
     log("slice64_setup", seconds=time.perf_counter() - t0, t_steps=T64, n=N64, fused=True)
-    k64 = phase_k64(stages64, dev)
-    slice64 = phase_slice64(stages64, dev)
+    k64 = phase_large(stages64, dev, N64, K64_CHECK)
+    slice64 = phase_slice_at("slice64", stages64, N64, 2 * T64)
     del stages64
+    # 128 keypoints, the kernels' limit: K1 and K2 there (K2 in tiles), then
+    # the chain with FastDPM
+    t0 = time.perf_counter()
+    stages128 = stages_at(N128, T_STEPS)
+    log("slice128_setup", seconds=time.perf_counter() - t0, t_steps=FASTDPM_STEPS, n=N128,
+        fused=True, sampler="fastdpm")
+    k128 = phase_large(stages128, dev, N128, K128_CHECK)
+    slice128 = phase_slice_at("slice128", with_fastdpm(stages128, FASTDPM_STEPS), N128,
+                              2 * FASTDPM_STEPS)
+    del stages128
+    large = {N64: k64, N128: k128}
 
     # the training tasks: the first three on one synthetic airplane tree with
     # normals, the SAP upsampler on a tree of DPSR grids
@@ -2925,7 +3066,11 @@ def main():
                                      num_points=3000, shape_variety=True, with_psr=False)
         log("train_setup", seconds=time.perf_counter() - t0, batch=TRAIN_BATCH, models=16)
         sap_root = os.path.join(tmp, "shapenet_psr_sap")
-        tasks = {"kp": phase_train(dev, root, tmp), "kp64": phase_train64(dev, root, tmp),
+        tasks = {"kp": phase_train(dev, root, tmp),
+                 "kp64": phase_train_at(dev, root, tmp, N64, TRAIN_BATCH, TRAIN64_WARMUP,
+                                        TRAIN64_STEPS),
+                 "kp128": phase_train_at(dev, root, tmp, N128, TRAIN128_CHECK,
+                                         TRAIN128_WARMUP, TRAIN128_STEPS),
                  "ae": phase_train_ae(dev, root, tmp),
                  "latent": phase_train_latent(dev, root, tmp), "sap": phase_train_sap(dev, tmp),
                  "x0": phase_train_x0(dev, root, tmp), **phase_train_cond(dev, root, tmp),
@@ -2977,6 +3122,7 @@ def main():
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None, "launches_train": per_task("fps"),
         "launches_slice64": slice64["launches"].get("fps", 0),
+        "launches_slice128": slice128["launches"].get("fps", 0),
         "launches_eval": per_eval("fps"), "launches_cli": per_cli("fps"),
         "launches_ddp_per_rank_step": per_rank_step("fps"),
         "decode_ms": fps_sum(DECODE_FPS, BATCH)[0],
@@ -2993,7 +3139,8 @@ def main():
         "replaces": "slide_tpu/models/fused_denoiser.py:553",
         "launches": launches.get("fused_denoiser", 0),
         "max_abs_err": max(k1_err, eval_k1_err, tasks["x0"]["k1_err"], tasks["kp64"]["k1_err"],
-                           slice64["k1_err"], *(r["k1_err"] for r in k64.values()),
+                           tasks["kp128"]["k1_err"], slice64["k1_err"], slice128["k1_err"],
+                           *(r["k1_err"] for k in large.values() for r in k.values()),
                            *(res["k1_err"] for res in ddp.values())),
         "ms": sum(r[0] for r in nets) / 2, "plain_ms": sum(r[1] for r in nets) / 2,
         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
@@ -3002,28 +3149,35 @@ def main():
                            "bound_ms": bound(r[3])[0], "bound_by": bound(r[3])[1],
                            "scratch_bytes_ms": r[4]}
                     for name, r in [*zip(("kp", "lat"), nets),
-                                    *((f"{n}_n{N64}", k64[n]["k1"]) for n in ("kp", "lat"))]},
+                                    *((f"{name}_n{n}", k[name]["k1"]) for n, k in large.items()
+                                      for name in ("kp", "lat"))]},
         "launches_train": per_task("fused_denoiser"),
         "launches_slice64": slice64["launches"].get("fused_denoiser", 0),
+        "launches_slice128": slice128["launches"].get("fused_denoiser", 0),
         "launches_eval": per_eval("fused_denoiser"), "launches_cli": per_cli("fused_denoiser"),
         "launches_ddp_per_rank_step": per_rank_step("fused_denoiser")}, {
         "name": "fused_denoiser_bwd", "route": "cuda",
         "source": "slide_tpu_torch/csrc/fused_denoiser_bwd.cu",
         "replaces": "slide_tpu/models/fused_denoiser.py:621",
         "launches": tasks["kp"]["launches"].get("fused_denoiser_bwd", 0),
-        "max_abs_err": max(k2_err, tasks["kp64"]["k2_err"], *(r["k2_err"] for r in k64.values()),
+        "max_abs_err": max(k2_err, tasks["kp64"]["k2_err"], tasks["kp128"]["k2_err"],
+                           *(r["k2_err"] for k in large.values() for r in k.values()),
                            *(res["k2_err"] for res in ddp.values())),
         "ms": k2_main[0], "plain_ms": k2_main[1],
         "bound_ms": bound(k2_main[2])[0], "bound_by": bound(k2_main[2])[1],
         "library_ms": None, "launches_train": per_task("fused_denoiser_bwd"),
         "launches_slice64": slice64["launches"].get("fused_denoiser_bwd", 0),
+        "launches_slice128": slice128["launches"].get("fused_denoiser_bwd", 0),
+        "tiles_train": {task: res.get("k2_tiles", 1) for task, res in tasks.items()
+                        if res["launches"].get("fused_denoiser_bwd", 0)},
         "launches_cli": per_cli("fused_denoiser_bwd"),
         "launches_ddp_per_rank_step": per_rank_step("fused_denoiser_bwd"),
         "per_net": {key: {"ms": r[0], "plain_ms": r[1],
                           "bound_ms": bound(r[2])[0], "bound_by": bound(r[2])[1],
                           "scratch_bytes_ms": r[3]}
                     for key, r in [*((f"{name}_b{b}", r) for (name, b), r in k2.items()),
-                                   *((f"{n}_n{N64}", k64[n]["k2"]) for n in ("kp", "lat"))]}}]}),
+                                   *((f"{name}_n{n}", k[name]["k2"]) for n, k in large.items()
+                                     for name in ("kp", "lat"))]}}]}),
           flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {

@@ -138,9 +138,9 @@ def load_kernels() -> ctypes.CDLL:
     # jobs, tiles, tiles' count, depth parts, parts' sums, dpc, dt4, dcls,
     # dflat, B, flat size, blocks per cloud, blocks per SM, shared memory
     # bytes, tape floats per cloud, t4 / cls / cotangent floats per cloud,
-    # device, stream
+    # accumulate into dflat (a batch tile after the first), device, stream
     lib.slide_fused_denoiser_bwd.argtypes = ([p] * 10 + [i, i, p] + [p] * 4 + [i] * 5
-                                             + [ctypes.c_longlong, i, i, i, i, p])
+                                             + [ctypes.c_longlong, i, i, i, i, i, p])
     lib.slide_fused_denoiser_bwd.restype = i
     # shared memory bytes, blocks per cloud, blocks per SM, device, out:
     # K2's clusters the card holds at once

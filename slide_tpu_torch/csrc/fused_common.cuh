@@ -474,6 +474,38 @@ __device__ __noinline__ void gemm_t(Ctx& cx, const Stream st, const float* bias,
     cx.j = j;
 }
 
+// The k nearest of the n points by one point's distance row: k rounds of
+// masked argmin, ties to the lowest index, into picks[0..k).  The taken
+// points are kMaskWords 64-bit words in registers (point j: bit j % 64 of
+// word j / 64; the words are indexed by unrolled constants only).
+__device__ __forceinline__ void knn_row(const float* __restrict__ dist, int n, int k,
+                                        int* __restrict__ picks) {
+    uint64_t taken[kMaskWords];
+#pragma unroll
+    for (int w = 0; w < kMaskWords; ++w) taken[w] = 0ull;
+    for (int s = 0; s < k; ++s) {
+        int best = -1;
+        float bd = 0.0f;
+#pragma unroll
+        for (int w = 0; w < kMaskWords; ++w) {
+            const uint64_t mask = taken[w];
+            const int j0 = 64 * w, j1 = min(n, j0 + 64);
+            for (int j = j0; j < j1; ++j) {
+                if ((mask >> (j - j0)) & 1ull) continue;
+                const float dj = dist[j];
+                if (best < 0 || dj < bd) {
+                    best = j;
+                    bd = dj;
+                }
+            }
+        }
+#pragma unroll
+        for (int w = 0; w < kMaskWords; ++w)
+            if ((best >> 6) == w) taken[w] |= 1ull << (best & 63);
+        picks[s] = best;
+    }
+}
+
 // The stream's next entry, checked against the product the caller runs
 // (weights at offset w, cin x cout, R rows): a product out of order traps.
 __device__ __forceinline__ Stream next_product(Ctx& cx, int w, int cin, int cout, int R) {

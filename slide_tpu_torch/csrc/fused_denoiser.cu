@@ -26,7 +26,7 @@
 //     row buffers (row stride 4 mod 8: a fragment's loads hit 32 banks), and
 //     products write in place (each pass keeps its whole output in registers
 //     until every warp has read its input rows).  Where a row buffer does not
-//     fit (up to 4096 grouped rows per cloud at 64 points), the table places
+//     fit (up to 16384 grouped rows per cloud at 128 points), the table places
 //     it in the block's device scratch and the same code reads it there;
 //   - across blocks only what the math needs: a GroupNorm's per-group sums
 //     (x and x^2 over the block's rows, formed in the epilogue of the
@@ -302,30 +302,15 @@ __device__ __noinline__ void attention(Ctx& cx, const Att& a, const float* feat,
     compute_sync();
 }
 
-// The k nearest points of each owned point (k rounds of masked argmin over
-// its distance row, ties to the lowest index; the taken points in a 64-bit
-// mask, one bit a point of the cloud).
+// The k nearest points of each owned point (fused_common.cuh's knn_row over
+// its distance row: k rounds of masked argmin, ties to the lowest index).
 __device__ __noinline__ void knn_select(Ctx& cx, int k) {
     const Spec& sp = *cx.pl->sp;
     const float* dist = fused_smem + sp.dist;
     int* knn = reinterpret_cast<int*>(fused_smem + sp.knn);
     if (TID < cx.pl->Pr) {
         const int i = TID, n = cx.pl->n;
-        uint64_t taken = 0ull;
-        for (int s = 0; s < k; ++s) {
-            int best = -1;
-            float bd = 0.0f;
-            for (int j = 0; j < n; ++j) {
-                if ((taken >> j) & 1ull) continue;
-                const float dj = dist[i * n + j];
-                if (best < 0 || dj < bd) {
-                    best = j;
-                    bd = dj;
-                }
-            }
-            taken |= 1ull << best;
-            knn[i * sp.kmax + s] = best;
-        }
+        knn_row(dist + i * n, n, k, knn + i * sp.kmax);
     }
     compute_sync();
 }

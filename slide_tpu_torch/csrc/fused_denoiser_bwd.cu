@@ -50,6 +50,12 @@
 //     a 128 x 128 output tile and a depth part each, from the plan), depth =
 //     the batch's rows (131072 at 64 points and batch 32), 3xTF32; a third
 //     launch sums the parts in order.  No per-cloud partials of the weights;
+//   - a batch whose tape the card should not hold at once runs in tiles of
+//     clouds (the wrapper's plan, `PackedNet.k2_tiles`, as the JAX package's
+//     backward runs its batch over a sequential grid): one call of the entry
+//     point per tile, in order, each over its own clouds' rows and a tape the
+//     size of a tile; the parts' sum of every tile after the first adds to
+//     d(flat), so the tiles' weight gradients sum in a fixed order;
 //   - deterministic: no atomics; every sum in a fixed order; two launches
 //     give equal results.  kNN picks are recomputed from the distances
 //     (rounded as K1 rounds them) and carry no gradient; the clamps (the
@@ -312,31 +318,14 @@ __device__ __noinline__ void att_fwd(Ctx& cx, const Bwd& bw, const Att& a, int f
     compute_sync();
 }
 
-// K1's kNN for every point of the cloud (each block all of them): k rounds of
-// masked argmin over its distance row, ties to the lowest index, the taken
-// points in a 64-bit mask (K1's knn_select).
+// K1's kNN for every point of the cloud (each block all of them, a thread a
+// point): fused_common.cuh's knn_row over its distance row.
+static_assert(kMaxN <= kCompute, "knn_all: a compute thread per point");
 __device__ __noinline__ void knn_all(const Bwd& bw, int n, int k) {
     const Spec2& s2 = *bw.s2;
     const float* dist = fused_smem + s2.dist;
     int* knn = reinterpret_cast<int*>(fused_smem + s2.knn);
-    if (TID < n) {
-        const int i = TID;
-        uint64_t taken = 0ull;
-        for (int s = 0; s < k; ++s) {
-            int best = -1;
-            float bd = 0.0f;
-            for (int j = 0; j < n; ++j) {
-                if ((taken >> j) & 1ull) continue;
-                const float dj = dist[i * n + j];
-                if (best < 0 || dj < bd) {
-                    best = j;
-                    bd = dj;
-                }
-            }
-            taken |= 1ull << best;
-            knn[i * s2.kmax + s] = best;
-        }
-    }
+    if (TID < n) knn_row(dist + TID * n, n, k, knn + TID * s2.kmax);
     compute_sync();
 }
 
@@ -1192,14 +1181,15 @@ weight_grad_kernel(const int* __restrict__ jobs, const int* __restrict__ blocks,
     if (bias && tid < kDwTile && n0 + tid < cout) out[dst_b + n0 + tid] = bsum;
 }
 
-// d(flat)[e] = sum over the depth parts, in order.
+// d(flat)[e] = sum over the depth parts, in order; added to d(flat) when
+// `accumulate` (a batch tile after the first).
 __global__ void sum_parts_kernel(const float* __restrict__ wpart, int parts, long long size,
-                                 float* __restrict__ out) {
+                                 int accumulate, float* __restrict__ out) {
     for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < size;
          e += (long long)gridDim.x * blockDim.x) {
         float s = 0.0f;
         for (int q = 0; q < parts; ++q) s += wpart[(size_t)q * size + e];
-        out[e] = s;
+        out[e] = accumulate ? out[e] + s : s;
     }
 }
 
@@ -1269,7 +1259,8 @@ extern "C" int slide_fused_table2_ints() {
 // gradient and its parts' sums (parts x size); dpc, dt4, dcls (the inputs' shapes), dflat
 // (size).  The chain: one cluster of `cluster` blocks per cloud,
 // `occupancy` blocks per SM, smem_bytes of shared memory each (the plan's);
-// then the weight gradient, then its parts' sum.
+// then the weight gradient, then its parts' sum, written to dflat or, when
+// `accumulate` (a batch tile after the first), added to it.
 extern "C" int slide_fused_denoiser_bwd(const float* pc, const float* t4, const float* cls,
                                         const float* g, const float* wcat, const int* table,
                                         const int* table2, float* scratch, const int* jobs,
@@ -1277,7 +1268,7 @@ extern "C" int slide_fused_denoiser_bwd(const float* pc, const float* t4, const 
                                         float* dpc, float* dt4, float* dcls, float* dflat, int B,
                                         int size, int cluster, int occupancy, int smem_bytes,
                                         long long bwd_floats, int t4n, int clsn, int gn,
-                                        int device, void* stream) {
+                                        int accumulate, int device, void* stream) {
     if (B <= 0 || size <= 0 || n_tiles <= 0 || parts <= 0 || smem_bytes <= 0 ||
         !placement_ok(cluster, occupancy))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -1302,7 +1293,7 @@ extern "C" int slide_fused_denoiser_bwd(const float* pc, const float* t4, const 
     if (e != cudaSuccess) return static_cast<int>(e);
     const long long blocks = (static_cast<long long>(size) + 255) / 256;
     sum_parts_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-        wpart, parts, size, dflat);
+        wpart, parts, size, accumulate, dflat);
     return static_cast<int>(cudaGetLastError());
 }
 

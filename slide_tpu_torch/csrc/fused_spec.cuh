@@ -10,10 +10,11 @@ namespace slide_fused {
 constexpr int kCluster = 8;                  // K1: blocks per cloud
 constexpr int kMaxLayers = 6;
 constexpr int kMaxLevels = 4;
-// points a cloud: the kNN's mask of taken points is one 64-bit word, and a
-// block keeps (K2: every block) the cloud's n x n distances in shared memory
-constexpr int kMaxN = 64;
-static_assert(kMaxN <= 64, "knn_select's mask holds 64 points");
+// points a cloud: the kNN keeps its taken points in kMaskWords 64-bit words,
+// and K2 keeps the cloud's n x n distances and n x kmax picks in every
+// block's shared memory (128 KB at 128 points, beside the weight ring)
+constexpr int kMaxN = 128;
+constexpr int kMaskWords = (kMaxN + 63) / 64;
 constexpr int kMaxVec = 1024;
 constexpr int kMaxGroups = 32;
 constexpr int kGradBuffers = 6;

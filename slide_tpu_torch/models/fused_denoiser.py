@@ -45,9 +45,12 @@ the tape over the whole batch (`_k2_jobs`; plain version
 `weight_grads_plain`).  On the CPU the backward is autograd through
 `fused_forward_plain`, recomputed inside `backward`: K2's plain version.  The clamps (distances at
 0, GroupNorm variance at 0) are `torch.maximum`, whose gradient at a tie is
-0.5, as `jnp.maximum`'s is; K2 follows the same rule.
+0.5, as `jnp.maximum`'s is; K2 follows the same rule.  A batch whose tape
+would pass K2_TAPE_FLOATS runs in tiles of clouds (`PackedNet.k2_tiles`),
+one launch each, as the JAX package's backward runs its batch in tiles
+over a sequential grid; the plain version takes the batch in one pass.
 
-Limits of both kernels (`limits_error`): N <= 64 points, at most 4 levels,
+Limits of both kernels (`limits_error`): N <= 128 points, at most 4 levels,
 widths up to 1024 (the t / class embeddings included), at most 32
 GroupNorm groups and MLPs of at most 6 layers (the JAX package's Pallas
 kernels have none of them).  `make_fused_net_fn` and `make_fused_train_fn`
@@ -74,11 +77,18 @@ _EPS = 1e-5
 # limits of csrc/fused_denoiser.cu (its kMax* constants)
 MAX_LAYERS = 6
 MAX_LEVELS = 4
-# 64 points: the kNN's mask of taken points is one 64-bit word, and K2's tape
-# grows with the grouped rows, N^2 at the shipped presets (SA k = N): the
-# latent net's is 73.7M floats a cloud at 64 points (9.4 GB for a training
-# batch of 32) and would be 284M at 128 (36 GB of the H100's 80)
-MAX_POINTS = 64
+# 128 points: K2 keeps the cloud's N x N distances and N x kmax kNN picks in
+# every block's shared memory (128 KB at 128 points; the kp net's plan then
+# takes 228096 of the 232448 bytes a block may have)
+MAX_POINTS = 128
+# K2's tape grows with the grouped rows, N^2 at the shipped presets (SA k =
+# N): the latent net's is 73.7M floats a cloud at 64 points and 284M at 128.
+# A launch takes as many clouds as K2_TAPE_FLOATS (12 GiB) of tape hold, and
+# a larger batch runs in tiles of them (`PackedNet.k2_tiles`): every shipped
+# net up to 64 points takes a training batch of 32 in one launch (the latent
+# net's tape 9.4 GB), at 128 points the kp net's in two, the latent net's in
+# three
+K2_TAPE_FLOATS = 3 * 2**30
 MAX_VEC = 1024
 MAX_GROUPS = 32
 N_GRAD_BUFFERS = 6          # K2's row-sized gradient buffers
@@ -213,8 +223,8 @@ def limits_error(spec: Mapping) -> Optional[str]:
     """Which limit of the fused kernels (K1 and K2) `spec` (a `build_spec`)
     breaks, or None when it is inside them."""
     if spec["n"] > MAX_POINTS:
-        return (f"the fused kernels hold at most {MAX_POINTS} points (their kNN mask is "
-                f"one 64-bit word; K2's tape grows as N^2), got {spec['n']}")
+        return (f"the fused kernels hold at most {MAX_POINTS} points (K2 keeps the cloud's "
+                f"N x N distances in each block's shared memory), got {spec['n']}")
     if len(spec["sa"]) > MAX_LEVELS or len(spec["fp"]) > MAX_LEVELS:
         return f"the fused kernels hold at most {MAX_LEVELS} levels"
     widths = [spec["t4"], spec["cls"], spec["head_in"], 128, spec["out_dim"]]
@@ -395,8 +405,8 @@ class PackedNet:
     `sources` lists, in buffer order, the parameters the buffer was packed
     from (`pack_flat` packs them again, differentiably, from the live
     parameters).  `scratch` / `bwd_scratch` are K1's and K2's per-cloud
-    memory, grown to the largest batch seen and reused (launches on one
-    stream never overlap).
+    memory, grown to the largest batch (K2: batch tile) seen and reused
+    (launches on one stream never overlap).
 
     K2's own: `table2` (`TABLE2`, on the card) and `layout2` read back;
     `jobs` / `tiles`, the products of its weight-gradient kernel and its
@@ -437,6 +447,15 @@ class PackedNet:
             self.bwd_scratch = _device_scratch(floats, self.flat.device, "K2", batch,
                                                self.layout2["bwd_floats"], self.layout["n"])
         return self.bwd_scratch
+
+    def k2_tiles(self, batch: int) -> list:
+        """K2's tiles of a batch: [(first cloud, past the last)], in order,
+        as even as can be, each of as many clouds as K2_TAPE_FLOATS of tape
+        hold (at least one)."""
+        per = max(1, K2_TAPE_FLOATS // self.layout2["bwd_floats"])
+        n_tiles = -(-batch // per)
+        ends = [batch * (i + 1) // n_tiles for i in range(n_tiles)]
+        return list(zip([0] + ends[:-1], ends))
 
     def bwd_buffers(self) -> None:
         """K2's tables, the transposing gather and its output, and the weight
@@ -1020,20 +1039,25 @@ def _dense(x: torch.Tensor, flat: torch.Tensor, d: Mapping) -> torch.Tensor:
 
 
 def _group_norm(x: torch.Tensor, flat: torch.Tensor, nd: Mapping) -> torch.Tensor:
-    """Tail GroupNorm per sample over (rows, group channels); x (B, R, C)."""
+    """Tail GroupNorm per sample over (rows, group channels); x (B, R, C).
+    It normalises each group's values as one contiguous run, (B, G, R x
+    C / G), whose sums PyTorch takes pairwise, in the forward and in
+    autograd's backward alike.  (Summed in place over the rows, the fp32
+    statistics of a 128-point cloud's 16384 grouped rows put the narrow
+    test nets' output up to 3e-5 from float64, 10x the JAX package's error,
+    and the error moved with the buffers' alignment.)"""
     b, r, c = x.shape
     g = nd["g"]
     c_norm = c - c % g
     gsize = c_norm // g
-    xn = x[..., :c_norm].reshape(b, r, g, gsize)
+    xg = x[..., :c_norm].reshape(b, r, g, gsize).transpose(1, 2).reshape(b, g, r * gsize)
     cnt = float(r * gsize)
-    mean = xn.sum(dim=(1, 3)) / cnt
-    m2 = (xn * xn).sum(dim=(1, 3)) / cnt
+    mean = xg.sum(dim=-1, keepdim=True) / cnt
+    m2 = (xg * xg).sum(dim=-1, keepdim=True) / cnt
     var = torch.maximum(m2 - mean * mean, mean.new_zeros(()))
     inv = torch.rsqrt(var + _EPS)
-    y = (xn - mean[:, None, :, None]) * inv[:, None, :, None]
-    y = y.reshape(b, r, c_norm) * flat[nd["s"]:nd["s"] + c_norm] \
-        + flat[nd["b"]:nd["b"] + c_norm]
+    y = ((xg - mean) * inv).reshape(b, g, r, gsize).transpose(1, 2).reshape(b, r, c_norm)
+    y = y * flat[nd["s"]:nd["s"] + c_norm] + flat[nd["b"]:nd["b"] + c_norm]
     if c_norm == c:
         return y
     return torch.cat([y, x[..., c_norm:]], dim=-1)
@@ -1225,9 +1249,12 @@ def fused_backward_cuda(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
     fixed order (two launches on the same inputs give equal results).
     Takes contiguous fp32 CUDA tensors; raises on anything else.
 
-    Before the launch one gather (`PackedNet.gather`) lays out the weights
-    and their transposes for K2's d input products; its buffer and every
-    other scratch K2 needs are sized once on `packed`."""
+    The batch runs in the tiles of `PackedNet.k2_tiles`, one launch a tile,
+    in order: each over its own clouds' rows, its weight gradients added to
+    d flat.  A cloud's rows of d pc, d t4 and d cls do not depend on the
+    tiling.  Before the launches one gather (`PackedNet.gather`) lays out
+    the weights and their transposes for K2's d input products; its buffer
+    and every other scratch K2 needs are sized once on `packed`."""
     lay, lay2 = packed.layout, packed.layout2
     flat = packed.flat if flat is None else flat
     b = pc.shape[0]
@@ -1243,17 +1270,20 @@ def fused_backward_cuda(packed: PackedNet, pc: torch.Tensor, t4: torch.Tensor,
     torch.index_select(flat.detach(), 0, packed.gather, out=packed.wcat)
     dpc, dt4, dcls = torch.empty_like(pc), torch.empty_like(t4), torch.empty_like(cls)
     dflat = torch.empty_like(flat)
-    scratch = packed.bwd_scratch_for(b)
+    tiles = packed.k2_tiles(b)
+    scratch = packed.bwd_scratch_for(max(e - s for s, e in tiles))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.slide_fused_denoiser_bwd(
-        pc.data_ptr(), t4.data_ptr(), cls.data_ptr(), g.data_ptr(), packed.wcat.data_ptr(),
-        packed.table.data_ptr(), packed.table2.data_ptr(), scratch.data_ptr(),
-        packed.jobs.data_ptr(), packed.tiles.data_ptr(), packed.tiles.shape[0], packed.splits,
-        packed.wpart.data_ptr(), dpc.data_ptr(), dt4.data_ptr(), dcls.data_ptr(),
-        dflat.data_ptr(), b, size, lay2["cluster"], lay2["occupancy"], lay2["smem_bytes"],
-        lay2["bwd_floats"], lay["t4"], lay["cls"], lay["n"] * lay["out_dim"], dev.index, stream)
-    _build.check(lib, code, "fused_denoiser_bwd")
-    _build.launch_counts["fused_denoiser_bwd"] += 1
+    for s, e in tiles:
+        code = lib.slide_fused_denoiser_bwd(
+            pc[s:e].data_ptr(), t4[s:e].data_ptr(), cls[s:e].data_ptr(), g[s:e].data_ptr(),
+            packed.wcat.data_ptr(), packed.table.data_ptr(), packed.table2.data_ptr(),
+            scratch.data_ptr(), packed.jobs.data_ptr(), packed.tiles.data_ptr(),
+            packed.tiles.shape[0], packed.splits, packed.wpart.data_ptr(), dpc[s:e].data_ptr(),
+            dt4[s:e].data_ptr(), dcls[s:e].data_ptr(), dflat.data_ptr(), e - s, size,
+            lay2["cluster"], lay2["occupancy"], lay2["smem_bytes"], lay2["bwd_floats"],
+            lay["t4"], lay["cls"], lay["n"] * lay["out_dim"], int(s > 0), dev.index, stream)
+        _build.check(lib, code, "fused_denoiser_bwd")
+        _build.launch_counts["fused_denoiser_bwd"] += 1
     return dpc, dt4, dcls, dflat
 
 

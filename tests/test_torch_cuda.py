@@ -149,6 +149,17 @@ def _random_fused_net(cfg, n, seed):
     return net, make_fused_net_fn(cfg, net, n)
 
 
+def _scope_points(b, n, din, gen):
+    """Random clouds; past 64 points with copies of points past index 63
+    placed at index 127 and past it (picks tied at distance 0 across the kNN
+    mask's two words, decided by the lowest index)."""
+    pc = torch.randn((b, n, din), generator=gen, device="cuda")
+    if n > 64:
+        pc[:, n - 1, :3] = pc[:, 70, :3]
+        pc[:, 90, :3] = pc[:, 3, :3]
+    return pc
+
+
 def _scope_config(case, n):
     """The shipped preset of `case` at n points; past 32 points with SA
     nsample [n, 16], so that the first level groups all points and the
@@ -166,9 +177,11 @@ def _scope_config(case, n):
     ("lat32", 32, 3),     # 1024 grouped rows per cloud, widths up to 779: rows in device memory
     ("kp8", 8, 5),        # one point per block
     ("kp", 16, 300),      # 2400 blocks: several waves
-    ("kp64", 64, 16),     # the kernels' limit: 4096 grouped rows per cloud
+    ("kp64", 64, 16),     # 4096 grouped rows per cloud
     ("lat64", 64, 3),
     ("kp40", 40, 5),      # five points a block
+    ("kp128", 128, 3),    # the kernels' limit: 16384 grouped rows per cloud
+    ("lat128", 128, 2),
 ])
 def test_k1_matches_plain_scope(cuda, case, n, b):
     # K1 at the edges of its stated scope, random weights, against its plain
@@ -180,7 +193,7 @@ def test_k1_matches_plain_scope(cuda, case, n, b):
     net, fn = _random_fused_net(cfg, n, seed=n + b)
     din = 3 + cfg["in_fea_dim"]
     gen = torch.Generator(device="cuda").manual_seed(b)
-    pc = torch.randn((b, n, din), generator=gen, device="cuda")
+    pc = _scope_points(b, n, din, gen)
     ts = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
     label = torch.randint(0, 13, (b,), generator=gen, device="cuda")
     with torch.no_grad():
@@ -354,9 +367,11 @@ def test_k2_matches_plain(fused_nets, name, b, duplicates):
     ("lat32", 32, 3),     # 1024 grouped rows per cloud, widths up to 779
     ("kp8", 8, 5),        # two points per block
     ("kp", 16, 300),      # 300 clusters: several waves
-    ("kp64", 64, 16),     # the kernels' limit: 4096 grouped rows per cloud
+    ("kp64", 64, 16),     # 4096 grouped rows per cloud
     ("lat64", 64, 3),
     ("kp40", 40, 5),
+    ("kp128", 128, 3),    # the kernels' limit: 16384 grouped rows per cloud
+    ("lat128", 128, 2),
 ])
 def test_k2_matches_plain_scope(cuda, case, n, b):
     # K2 at the edges of the fused scope (K1's), random weights, against the
@@ -368,7 +383,7 @@ def test_k2_matches_plain_scope(cuda, case, n, b):
     net, fn = _random_fused_net(cfg, n, seed=n + b)
     din = 3 + cfg["in_fea_dim"]
     gen = torch.Generator(device="cuda").manual_seed(b)
-    pc = torch.randn((b, n, din), generator=gen, device="cuda")
+    pc = _scope_points(b, n, din, gen)
     g = torch.randn((b, n, din), generator=gen, device="cuda")
     ts = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
     label = torch.randint(0, 13, (b,), generator=gen, device="cuda")
@@ -397,23 +412,52 @@ def test_k2_matches_plain_scope(cuda, case, n, b):
 
 @pytest.mark.cuda
 def test_past_64_points_the_card_raises(cuda):
-    # on the card, as on the CPU, nothing falls back to the module: 65 points
-    # raise naming the limit, and a scratch the card cannot hold raises naming its size
+    # on the card, as on the CPU, nothing falls back to the module: 129
+    # points raise naming the limit, and a batch tile whose scratch the card
+    # cannot hold raises naming its size
     from slide_tpu_torch.configs import latent_ddpm_config
     from slide_tpu_torch.models import ConditionalPointNet2
     from slide_tpu_torch.models import fused_denoiser as fd
-    cfg = latent_ddpm_config("airplane", num_keypoints=65)["pointnet_config"]
+    cfg = latent_ddpm_config("airplane", num_keypoints=129)["pointnet_config"]
     net = ConditionalPointNet2(cfg).cuda()
-    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
-        fd.make_fused_net_fn(cfg, net, 65)
-    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
-        fd.make_fused_train_fn(cfg, net, 65)
-    cfg = latent_ddpm_config("airplane", num_keypoints=64)["pointnet_config"]
-    packed = fd.make_fused_train_fn(cfg, net, 64).packed
+    with pytest.raises(ValueError, match="at most 128 points.*fused=False"):
+        fd.make_fused_net_fn(cfg, net, 129)
+    with pytest.raises(ValueError, match="at most 128 points.*fused=False"):
+        fd.make_fused_train_fn(cfg, net, 129)
+    cfg = latent_ddpm_config("airplane", num_keypoints=128)["pointnet_config"]
+    packed = fd.make_fused_train_fn(cfg, net, 128).packed
     b = -(-100 * 2**30 // (4 * packed.layout2["bwd_floats"]))     # 100 GiB of tape
     with pytest.raises(torch.cuda.OutOfMemoryError, match=f"K2 needs .*batch of {b}"):
         packed.bwd_scratch_for(b)
     assert packed.bwd_scratch is None
+
+
+@pytest.mark.cuda
+def test_k2_tiles_match_one_launch(fused_nets, monkeypatch):
+    # K2 in batch tiles (one launch a tile, `PackedNet.k2_tiles`; the tape
+    # budget lowered to three clouds') against one launch of the whole
+    # batch: each cloud's rows of d pc, d t4 and d cls equal (a cloud's
+    # chain does not see the others), d flat within the K2 gate of the
+    # whole launch's (the tiles' weight sums added in order)
+    from slide_tpu_torch.models import fused_denoiser as fd
+    for name in ("kp", "lat"):
+        net, fn, din = fused_nets[name]
+        pc, t4, cls = _k1_inputs(net, 7, din, seed=70)
+        g = torch.randn((7, 16, din), generator=torch.Generator(device="cuda").manual_seed(7),
+                        device="cuda")
+        whole = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+        monkeypatch.setattr(fd, "K2_TAPE_FLOATS", 3 * fn.packed.layout2["bwd_floats"])
+        assert fn.packed.k2_tiles(7) == [(0, 2), (2, 4), (4, 7)]
+        before = _build.launch_counts["fused_denoiser_bwd"]
+        tiled = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+        again = fd.fused_backward_cuda(fn.packed, pc, t4, cls, g)
+        monkeypatch.undo()
+        assert _build.launch_counts["fused_denoiser_bwd"] == before + 6
+        for a, c in zip(tiled, again):
+            assert torch.equal(a, c)
+        for a, w in zip(tiled[:3], whole[:3]):
+            assert torch.equal(a, w)
+        assert _k2_within(tiled[3:], [whole[3].double()]), name
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""Part 5 of 13 of the tests in `torch_fused_cases.py` (its
+"""Part 5 of 14 of the tests in `torch_fused_cases.py` (its
 docstring says what they hold against the JAX package and at which
 tolerance): see ROADMAP.md, "Keep it under its limit"."""
 

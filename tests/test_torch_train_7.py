@@ -1,4 +1,4 @@
-"""Part 7 of 8 of the tests in `torch_train_cases.py` (its
+"""Part 7 of 9 of the tests in `torch_train_cases.py` (its
 docstring says what they hold against the JAX package and at which
 tolerance): see ROADMAP.md, "Keep it under its limit"."""
 

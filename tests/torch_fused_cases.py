@@ -1,7 +1,7 @@
 """The port's fused denoiser (`slide_tpu_torch/models/fused_denoiser.py`) and
 FastDPM samplers (`slide_tpu_torch/diffusion/fastdpm.py`) against the JAX
-package on the CPU, at 16 points and, up to the kernels' limit, at 40 and
-64.  Inputs, weights and noise are made with numpy from a
+package on the CPU, at 16 points and, up to the kernels' limit, at 40, 64,
+96 and 128.  Inputs, weights and noise are made with numpy from a
 seed (JAX chains' noise is rebuilt from their key splits and replayed through
 `noise_fn`).  The JAX fused forward runs its own CPU path
 (`fused_forward(..., use_pallas=False)`, plain jnp, jitted).
@@ -148,6 +148,8 @@ def test_packed_table_reads_back():
     ("lat", 32, 2, [1, 1]),      # 1024 grouped rows per cloud: rows in device memory
     ("kp", 64, 2, [1, 1]),       # 4096 grouped rows per cloud
     ("lat", 64, 2, [1, 1]),
+    ("kp", 128, 2, [1, 1]),      # 16384 grouped rows per cloud
+    ("lat", 128, 1, [1, 1]),     # too large for two blocks per SM
 ])
 def test_k1_plan_placements(cfg_fn, n, occupancy, rows_in_device_memory, monkeypatch):
     # K1's plan takes the first of K1_PLACEMENTS that fits, at the shipped
@@ -255,9 +257,49 @@ def test_knn_ties_past_index_31_match_jax(k):
     assert (got >= 32).any() and all(len(set(row)) == k for row in got.reshape(-1, k))
 
 
+
+# Past 64 points, up to the kernels' limit of 128: the kNN keeps its taken
+# points in two 64-bit words; the narrow nets as above (the first SA level
+# groups all points, the second and the KnnFP levels pick by kNN)
+
+@pytest.mark.parametrize("name,n", [("kp", 128), ("lat", 128), ("kp", 96)])
+def test_plain_matches_jax_fused_past_64_points(name, n):
+    cfg, net, params, din = _wide_case(name, n)
+    assert tf.scope_error(cfg, n) is None
+    x, ts, label = _inputs(2, din, seed=n + 1, n=n)
+    x[:, n - 1] = x[:, 70]                 # duplicates past index 63, the last at n - 1
+    x[:, 66] = x[:, 2]
+    spec = jf.build_spec(cfg, n)
+    weights = jf.extract_weights(params)
+    want = fast_jit(lambda xx, tt, ll: jf.fused_forward(spec, weights, xx, tt, ll,
+                                                         use_pallas=False), x, ts, label)
+    fn = tf.make_fused_net_fn(cfg, net, n)
+    assert fn.packed.layout["n"] == n
+    got = fn(*_t(x, ts, label))
+    assert got.shape == (2, n, din)
+    assert_close(want, got, atol=2e-5)
+
+
+@pytest.mark.parametrize("k", [8, 100, 128])
+def test_knn_ties_past_index_63_match_jax(k):
+    # as at 64 points, at 128: integer coordinates, copies of points below
+    # 64 placed past it and at index 127, ties decided by the lowest index
+    rng = np.random.default_rng(k + 1)
+    xyz = rng.integers(-2, 3, (2, 128, 3)).astype(np.float32)
+    xyz[:, 90:100] = xyz[:, 5:15]
+    xyz[:, 127] = xyz[:, 0]
+    xyz[:, 64] = xyz[:, 63]
+    d = tf.pairwise_sqdist(torch.as_tensor(xyz))
+    jd = jf._pairwise_sqdist(jnp.asarray(xyz))
+    np.testing.assert_array_equal(to_np(d), np.asarray(jd))
+    want = np.asarray(jnp.argmax(jf._topk_onehot(jd, k), axis=-1))
+    got = to_np(tf.knn_from_sqdist(d, k))
+    np.testing.assert_array_equal(got, want)
+    assert (got >= 64).any() and all(len(set(row)) == k for row in got.reshape(-1, k))
+
 def test_presets_are_in_the_fused_scope_up_to_64_points(monkeypatch):
-    # both shipped DDPM presets at every cloud size from 17 to 64 points:
-    # in the scope, and both kernels' plans fit the card; 65 names the limit.
+    # both shipped DDPM presets at every cloud size from 17 to 128 points:
+    # in the scope, and both kernels' plans fit the card; 129 names the limit.
     # The plans do not read the weights' values: their copies (2 s a pack at
     # full width) are left out
     from slide_tpu_torch.configs import keypoint_ddpm_config, latent_ddpm_config
@@ -265,13 +307,14 @@ def test_presets_are_in_the_fused_scope_up_to_64_points(monkeypatch):
     monkeypatch.setattr(tf, "_transpose_gather", lambda rec, size: torch.zeros(0))
     for cfg_fn in (keypoint_ddpm_config, latent_ddpm_config):
         net = ConditionalPointNet2(cfg_fn("airplane")["pointnet_config"])
-        for n in range(17, 65):
+        for n in range(17, 129):
             cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
             assert tf.scope_error(cfg, n) is None, (cfg_fn.__name__, n)
-            lay = tf.pack_weights(net, tf.build_spec(cfg, n)).layout
-            assert lay["n"] == n and lay["smem_bytes"] <= tf.K1_SMEM_BYTES
-        cfg = cfg_fn("airplane", num_keypoints=65)["pointnet_config"]
-        assert "at most 64 points" in tf.scope_error(cfg, 65)
+            packed = tf.pack_weights(net, tf.build_spec(cfg, n))
+            assert packed.layout["n"] == n and packed.layout["smem_bytes"] <= tf.K1_SMEM_BYTES
+            assert packed.layout2["smem_bytes"] <= tf.K1_SMEM_BYTES
+        cfg = cfg_fn("airplane", num_keypoints=129)["pointnet_config"]
+        assert "at most 128 points" in tf.scope_error(cfg, 129)
 
 
 # The packed tables of the shipped 16-point nets (sha256 of the int32

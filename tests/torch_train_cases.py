@@ -48,7 +48,7 @@ from slide_tpu_torch.train import ema as tema
 from slide_tpu_torch.train.checkpoint import find_max_iter
 from slide_tpu_torch.weights import (flax_leaves, load_flax_params, module_to_flax,
                                      read_checkpoint)
-from torch_port_helpers import flax_params_of
+from torch_port_helpers import fast_jit, flax_params_of
 
 N = 16
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -148,30 +148,30 @@ def test_cuda_spec_struct_matches_the_table():
 
 
 def test_64_keypoints_are_outside_the_fused_scope():
-    # the kernels hold up to 64 points: 65 keypoints are past them
-    cfg = keypoint_ddpm_config("airplane", num_keypoints=65)["pointnet_config"]
+    # the kernels hold up to 128 points: 129 keypoints are past them
+    cfg = keypoint_ddpm_config("airplane", num_keypoints=129)["pointnet_config"]
     # the JAX package takes it (its Pallas kernel has no such limit)
-    assert jf.supports_config(cfg) and jf.build_spec(cfg, 65)["n"] == 65
-    reason = tf.scope_error(cfg, 65)
-    assert reason is not None and "at most 64 points" in reason
+    assert jf.supports_config(cfg) and jf.build_spec(cfg, 129)["n"] == 129
+    reason = tf.scope_error(cfg, 129)
+    assert reason is not None and "at most 128 points" in reason
     net = ConditionalPointNet2(cfg)
     # past a limit nothing falls back to the module, on any device: the
     # constructors raise naming the limit and fused=False
-    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
-        tf.make_fused_net_fn(cfg, net, 65)
-    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
-        tf.make_fused_train_fn(cfg, net, 65)
-    with pytest.raises(ValueError, match="at most 64 points"):
-        tf.pack_weights(net, tf.build_spec(cfg, 65))
-    cfgs = {"kp": keypoint_ddpm_config(num_keypoints=65),
-            "lat": latent_ddpm_config(num_keypoints=65), "ae": autoencoder_config()}
-    with pytest.raises(ValueError, match="at most 64 points.*fused=False"):
+    with pytest.raises(ValueError, match="at most 128 points.*fused=False"):
+        tf.make_fused_net_fn(cfg, net, 129)
+    with pytest.raises(ValueError, match="at most 128 points.*fused=False"):
+        tf.make_fused_train_fn(cfg, net, 129)
+    with pytest.raises(ValueError, match="at most 128 points"):
+        tf.pack_weights(net, tf.build_spec(cfg, 129))
+    cfgs = {"kp": keypoint_ddpm_config(num_keypoints=129),
+            "lat": latent_ddpm_config(num_keypoints=129), "ae": autoencoder_config()}
+    with pytest.raises(ValueError, match="at most 128 points.*fused=False"):
         build_stages(1, 2, device="cpu", configs=cfgs)
 
 
-@pytest.mark.parametrize("n", [64, 65])
+@pytest.mark.parametrize("n", [128, 129])
 def test_train_route_at_the_point_limit(n):
-    # the train step's fused route: taken at 64 points; at 65 fused=True
+    # the train step's fused route: taken at 128 points; at 129 fused=True
     # raises naming fused=False (no silent module route), fused=False runs
     # the module
     cfg = keypoint_ddpm_config("airplane", num_keypoints=n)["pointnet_config"]
@@ -401,6 +401,142 @@ def test_fused_train_grads_at_64_points_match_jax(name):
     _assert_trees_close(_grads_tree(net), jgrads, rtol=5e-3, atol=1e-4)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jdx), rtol=5e-3, atol=1e-4)
 
+
+
+K2_TOL = 1e-4       # chip_smoke.py's: each gradient within K2_TOL x max(1, max |reference|)
+
+
+def _within_k2_tol(got, want, what):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err, bound = float(np.abs(got - want).max()), K2_TOL * max(1.0, float(np.abs(want).max()))
+    assert err <= bound, f"{what}: {err} > {bound}"
+
+
+def test_fused_train_grads_at_128_points_match_jax():
+    # K2's plain version against jax.vjp of JAX's `_forward_tile` (its fused
+    # train fn off Pallas) at the kernels' limit, the cotangent g applied:
+    # the first SA level groups all 128 points, the second and the KnnFP
+    # levels pick by kNN (picks past index 63).  A relu whose input lies
+    # within fp32 rounding of 0 passes its gradient in one fp32 backward and
+    # not in another (here one unit, its float64 input 1.7e-8, which JAX
+    # decides as float64 does): the port's decisions that float64 makes
+    # otherwise are taken off its gradients (`fused_backward_reference`, the
+    # K2 gate's search).  Then every parameter's gradient and d x within
+    # K2_TOL x max(1, max |JAX's|)
+    n = 128
+    cfg = _narrow(j_kp_config, nsample=[n, 16])
+    cfg["architecture"]["npoint"] = [n, n]
+    net = _perturbed_net(cfg, seed=n)
+    din = 3 + cfg["in_fea_dim"]
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, n, din)).astype(np.float32)
+    g = rng.standard_normal((2, n, din)).astype(np.float32)
+    ts = np.array([11, 730], np.int32)
+    label = np.array([5, 1], np.int32)
+
+    params = flax_params_of(net)
+    jfn = jf.make_fused_train_fn(cfg, n, use_pallas=False)
+    jgrads, jdx = fast_jit(jax.grad(lambda p, xx: jnp.sum(jfn(p, xx, ts, label) * g),
+                                    argnums=(0, 1)), params, x)
+
+    apply = tf.make_fused_train_fn(cfg, net, n)
+    packed = apply.packed
+    assert packed.layout["n"] == n
+    xt, gt = torch.as_tensor(x).requires_grad_(True), torch.as_tensor(g)
+    tt, lt = torch.as_tensor(ts), torch.as_tensor(label)
+    (apply(xt, tt, lt) * gt).sum().backward()
+
+    # the port's ties: the float64 reference with its decisions, less the
+    # float64 reference, carried back to the parameters by autograd
+    t4, cls, flat = net.t_embedder(tt), net.class_emb(lt.long()), packed.live_flat()
+    core = [xt.detach(), t4.detach(), cls.detach(), flat.detach()]
+    got = tf.fused_backward_plain(packed, core[0], core[1], core[2], gt, core[3])
+    mine, ties = tf.fused_backward_reference(packed, *core[:3], gt, got, core[3], tol=K2_TOL)
+    plain64, _ = tf.fused_backward_reference(packed, *core[:3], gt, got, core[3], max_tries=0)
+    assert len(ties) <= 4, ties
+    delta = [(a - b).float() for a, b in zip(mine, plain64)]
+    names = [name for name, _ in net.named_parameters()]
+    taken = dict(zip(names, torch.autograd.grad([t4, cls, flat], list(net.parameters()),
+                                                delta[1:], allow_unused=True)))
+    for name, p in net.named_parameters():
+        if taken[name] is not None:
+            p.grad -= taken[name]
+    jl, tl = jax.tree_util.tree_flatten_with_path(jgrads)[0], flax_leaves(_grads_tree(net))
+    assert len(jl) == len(tl)
+    for (path, w), mine_p in zip(jl, tl):
+        _within_k2_tol(mine_p, w, jax.tree_util.keystr(path))
+    _within_k2_tol(xt.grad.numpy() - delta[0].numpy(), jdx, "d x")
+
+
+def test_k2_tiles_plain_route_equals_the_whole_batch(monkeypatch):
+    # K2 runs a batch in the tiles of `PackedNet.k2_tiles`, one launch a
+    # tile, and the card's K2 gate holds a batch chunk by chunk against
+    # float64: both rest on a cloud's gradients not depending on the other
+    # clouds, and on d flat adding up over any split of the batch.  Here,
+    # under a tape budget of two clouds, K2's plain version one pass a tile
+    # against one pass over the whole batch: each cloud's rows of d pc, d t4
+    # and d cls, and d flat summed over the tiles in order, within 1e-5 x
+    # max(1, max |whole|) (the same fp32 terms, the weight sums split in
+    # another order); and its float64 run (`fused_backward_reference`, no
+    # tie search) in the same tiles, d flat summed, against the whole
+    # batch's within 1e-12 x max(1, max |whole|)
+    cfg = _narrow(j_lat_config, nsample=[6, 16])
+    net = _perturbed_net(cfg, seed=9)
+    packed = tf.pack_weights(net, tf.build_spec(cfg, N))
+    b, din = 5, 3 + cfg["in_fea_dim"]
+    gen = torch.Generator().manual_seed(10)
+    pc, g = torch.randn((b, N, din), generator=gen), torch.randn((b, N, din), generator=gen)
+    ts, label = torch.tensor([3, 500, 999, 42, 7]), torch.tensor([0, 4, 7, 1, 12])
+    with torch.no_grad():
+        t4, cls = net.t_embedder(ts), net.class_emb(label)
+    assert packed.k2_tiles(b) == [(0, b)]
+    monkeypatch.setattr(tf, "K2_TAPE_FLOATS", 2 * packed.layout2["bwd_floats"])
+    tiles = packed.k2_tiles(b)
+    assert tiles == [(0, 1), (1, 3), (3, 5)]
+
+    def in_tiles(fn):
+        parts = [fn(pc[s:e], t4[s:e], cls[s:e], g[s:e]) for s, e in tiles]
+        dflat = parts[0][3]
+        for part in parts[1:]:
+            dflat = dflat + part[3]
+        return [torch.cat([part[i] for part in parts]) for i in range(3)] + [dflat]
+
+    def close(got, want, what, rtol):
+        assert got.shape == want.shape, what
+        err = float((got - want).abs().max())
+        assert err <= rtol * max(1.0, float(want.abs().max())), (what, err)
+
+    whole = tf.fused_backward_plain(packed, pc, t4, cls, g)
+    tiled = in_tiles(lambda *x: tf.fused_backward_plain(packed, *x))
+    whole64, _ = tf.fused_backward_reference(packed, pc, t4, cls, g, whole, max_tries=0)
+    tiled64 = in_tiles(lambda *x: tf.fused_backward_reference(
+        packed, *x, tf.fused_backward_plain(packed, *x), max_tries=0)[0])
+    for what, a, w, a64, w64 in zip(("d pc", "d t4", "d cls", "d flat"), tiled, whole,
+                                    tiled64, whole64):
+        close(a, w, what, 1e-5)
+        close(a64, w64, what, 1e-12)
+
+
+def test_k2_tile_plan(monkeypatch):
+    # K2's tiles at the presets' training batch of 32: one launch for every
+    # shipped net up to 64 points, several at 128, each tile's tape within
+    # K2_TAPE_FLOATS, the tiles as even as can be.  The plans do not read the
+    # weights' values: their copies are left out
+    monkeypatch.setattr(tf, "pack_flat", lambda sources: torch.zeros(0))
+    monkeypatch.setattr(tf, "_transpose_gather", lambda rec, size: torch.zeros(0))
+    batch = 32
+    for cfg_fn in (keypoint_ddpm_config, latent_ddpm_config):
+        net = ConditionalPointNet2(cfg_fn("airplane")["pointnet_config"])
+        for n, tiles in ((16, 1), (64, 1), (128, 2 if cfg_fn is keypoint_ddpm_config else 3)):
+            cfg = cfg_fn("airplane", num_keypoints=n)["pointnet_config"]
+            packed = tf.pack_weights(net, tf.build_spec(cfg, n))
+            got = packed.k2_tiles(batch)
+            assert len(got) == tiles, (cfg_fn.__name__, n, got)
+            assert got[0][0] == 0 and got[-1][1] == batch
+            assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+            per = packed.layout2["bwd_floats"]
+            assert all((e - s) * per <= tf.K2_TAPE_FLOATS for s, e in got)
+            assert max(e - s for s, e in got) - min(e - s for s, e in got) <= 1
 
 @pytest.mark.parametrize("name", ["kp", "lat_topk"])
 def test_weight_gradient_jobs_equal_autograd(name, monkeypatch):
